@@ -1,0 +1,183 @@
+"""Transient Navier–Stokes CLI on PyTorch — the ported `solve_newton` main().
+
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 5
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --re 300 --dt 1e-3 \
+        --t-final 1.0 --delta 0.05 --save --save-dir res
+    python -m navierstokes_tpu_torch.run --nx 4 --ny 2 --nz 2 --steps 2 \
+        --device cpu
+
+Runs on one device (`--device`, default `cuda`; `cpu` runs K1's plain
+PyTorch version).  float32 (the default) is the flagship configuration:
+the measured Newton tolerances and `default_f32_krylov()`.  float64 takes
+the JAX CLI's float64 defaults, whose block-Jacobi preconditioner is not
+ported yet and raises NotImplementedError.  Per-step output mirrors the
+reference Newton monitor; `--save` writes PETSc-ASCII
+`solution_stepNNNN.dat` files byte-compatible with the golden corpus.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+
+def default_f32_krylov():
+    """The flagship f32 Krylov defaults: 'auto' preconditioner (two-level
+    with a degree-3 Chebyshev smoother up to 150k rows) on the plane layout,
+    coarse_agg from the measured size schedule."""
+    from navierstokes_tpu_torch.config import SolverConfig
+
+    return SolverConfig(rtol=1e-5, atol=1e-6, maxiter=1000,
+                        neumann_order=0, preconditioner="auto",
+                        spmv="plane")
+
+
+@dataclasses.dataclass
+class RunOutput:
+    """What `main` ran: final state, the solver (with its per-step history
+    and Stokes result) and wall seconds, each read after a device sync."""
+
+    u: torch.Tensor
+    solver: object
+    setup_s: float
+    stokes_s: float
+    prep_s: float
+    steps_s: float
+
+
+_NOT_PORTED = {
+    "msh": ("--msh (Gmsh meshes)", 1, "config and host layer"),
+    "vtu": ("--vtu", 7, "I/O and the full CLI"),
+    "checkpoint": ("--checkpoint", 7, "I/O and the full CLI"),
+    "resume": ("--resume", 7, "I/O and the full CLI"),
+}
+
+
+def main(argv=None) -> Optional[RunOutput]:
+    p = argparse.ArgumentParser(
+        description="Transient NS solver on PyTorch (one device)")
+    p.add_argument("--matrix-id", type=int,
+                   help="synthetic scaling-series mesh 1-10")
+    p.add_argument("--nx", type=int, help="custom channel mesh nx")
+    p.add_argument("--ny", type=int, default=None)
+    p.add_argument("--nz", type=int, default=None)
+    p.add_argument("--obstacle", action="store_true")
+    p.add_argument("--re", type=float, default=300.0)
+    p.add_argument("--dt", type=float, default=1e-3)
+    p.add_argument("--t-final", type=float, default=1.0)
+    p.add_argument("--steps", type=int, default=None,
+                   help="override number of steps")
+    p.add_argument("--delta", type=float, default=0.05)
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float64"])
+    p.add_argument("--save", action="store_true")
+    p.add_argument("--save-dir", default="res")
+    p.add_argument("--save-every", type=int, default=1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    # Flags of the JAX CLI whose slices are not ported yet: they raise.
+    p.add_argument("--msh", help="Gmsh 2.2 mesh file (not ported)")
+    p.add_argument("--vtu", action="store_true", help="(not ported)")
+    p.add_argument("--checkpoint", default=None, help="(not ported)")
+    p.add_argument("--resume", default=None, help="(not ported)")
+    p.add_argument("--devices", type=int, default=0,
+                   help=">1: distributed solver (not ported)")
+    args = p.parse_args(argv)
+
+    for name, (what, slice_no, title) in _NOT_PORTED.items():
+        if getattr(args, name):
+            raise NotImplementedError(
+                f"{what} is not ported to navierstokes_tpu_torch yet "
+                f"(ROADMAP slice {slice_no}: {title})")
+    if args.devices > 1:
+        raise NotImplementedError(
+            "--devices > 1 is not ported to navierstokes_tpu_torch yet "
+            "(ROADMAP slice 15: distribution)")
+
+    from navierstokes_tpu_torch.config import (
+        NewtonConfig,
+        NSConfig,
+        SolverConfig,
+    )
+    from navierstokes_tpu_torch.mesh.box import (
+        channel_mesh,
+        scaling_series_mesh,
+    )
+    from navierstokes_tpu_torch.model import NavierStokesSolver
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        p.error("--device cuda but no CUDA device is available "
+                "(pass --device cpu to run on the CPU)")
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    if args.matrix_id:
+        mesh = scaling_series_mesh(args.matrix_id)
+    elif args.nx:
+        mesh = channel_mesh(
+            args.nx, args.ny or args.nx // 2,
+            args.nz or args.ny or args.nx // 2, obstacle=args.obstacle,
+        )
+    else:
+        p.error("one of --matrix-id / --nx required")
+
+    if args.dtype == "float32":
+        # du_tol=inf: with the linear residual, the |F| test alone decides
+        newton = NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
+                              du_tol=float("inf"))
+        krylov = default_f32_krylov()
+        stokes = default_f32_krylov()
+    else:
+        newton = NewtonConfig()
+        krylov = SolverConfig()
+        stokes = SolverConfig(rtol=1e-12, atol=1e-12, maxiter=2000)
+    cfg = NSConfig(
+        dt=args.dt, t_final=args.t_final, reynolds=args.re, delta=args.delta,
+        dtype=args.dtype, newton=newton, krylov=krylov, stokes_krylov=stokes,
+    )
+    n_steps = args.steps if args.steps is not None else cfg.n_steps
+
+    print(f"Matrix size : {4 * mesh.nv}")
+    print(f"device={device} dtype={args.dtype} nodes={mesh.nv} "
+          f"tets={mesh.ne}")
+    solver = NavierStokesSolver(mesh, cfg, device=device)
+    sync()
+    setup_s = time.perf_counter() - t0
+
+    print("Solving Stokes system...")
+    t0 = time.perf_counter()
+    u0 = solver.stokes_init()
+    sync()
+    stokes_s = time.perf_counter() - t0
+    st = solver.stokes_result
+    print(f"Stokes: lin={st.iters} converged={st.converged}")
+
+    t0 = time.perf_counter()
+    solver._ensure_prepared()
+    sync()
+    prep_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    u = solver.run(
+        n_steps, u0=u0,
+        save_dir=args.save_dir if args.save else None,
+        save_every=args.save_every if args.save else 0,
+        monitor=True,
+    )
+    sync()
+    steps_s = time.perf_counter() - t0
+    print(f"Total time: {steps_s:.6f} seconds")
+    return RunOutput(u=u, solver=solver, setup_s=setup_s, stokes_s=stokes_s,
+                     prep_s=prep_s, steps_s=steps_s)
+
+
+if __name__ == "__main__":
+    main()
