@@ -4,12 +4,15 @@ The dataclasses keep the reference names and defaults so a JAX `NSConfig`
 converts one to one (`convert.config_from_jax`).  Dtypes stay strings;
 `NSConfig.torch_dtype` maps them to `torch.float32` / `torch.float64`.
 
-The port runs one slice of the JAX package: the two-level preconditioner on
-the component-plane layout with the exact Jacobian and the operator-form
-residual.  `check_supported` raises `NotImplementedError` for every option
-outside it, naming the ROADMAP slice that ports it, so that no option
-silently runs something else.  The `'auto'` resolution itself is carried
-over whole, so the tier choice is the JAX package's.
+The port runs these slices of the JAX package, all with the exact Jacobian
+and the operator-form residual: the two-level preconditioner on the
+component-plane layout ('tlp', spmv='plane') and on the scalar-DIA layout
+('tl', spmv in auto/xla/pallas), block-Jacobi with its Neumann boost ('bj',
+the float64 default), and for both two-level layouts the dense or the
+multilevel coarse level.  `check_supported` raises `NotImplementedError`
+for every option outside them, naming the ROADMAP slice that ports it, so
+that no option silently runs something else.  The `'auto'` resolution
+itself is carried over whole, so the tier choice is the JAX package's.
 """
 
 from __future__ import annotations
@@ -27,7 +30,11 @@ class SolverConfig:
     """Krylov solver settings (GMRES(30), rtol 1e-10 / atol 1e-12 by default).
 
     See the JAX package's `SolverConfig` for the measured history of each
-    knob; only the two-level plane path is ported (`check_supported`)."""
+    knob; `check_supported` says which are ported.  `spmv`: 'plane' is the
+    component-plane layout (two_level only; a scalar operator treats it as
+    'auto'); 'auto' and 'pallas' run kernel K2 on the card for every
+    scalar-DIA operator; 'xla' runs K2's plain PyTorch version, kernel-free,
+    for debugging."""
 
     method: str = "gmres"
     restart: int = 30
@@ -160,6 +167,15 @@ def resolve_coarse_defaults(cfg: NSConfig, nv: int,
     )
 
 
+SPMV_CHOICES = ("auto", "xla", "pallas", "plane")
+
+
+def second_level_agg(nc: int, coarse_dense_max: int) -> int:
+    """Aggregate size of the multilevel path's second level, in coarse
+    nodes: ceil(nc / coarse_dense_max), at least 2."""
+    return max(-(-nc // coarse_dense_max), 2)
+
+
 def _not_ported(what: str, slice_no: int, title: str):
     raise NotImplementedError(
         f"{what} is not ported to navierstokes_tpu_torch yet "
@@ -184,15 +200,13 @@ def _check_krylov(sc: SolverConfig, nv: int) -> None:
     if p == "schur":
         _not_ported("preconditioner='schur' (the 'auto' tier above 150k "
                     "rows)", 6, "the Schur tier")
-    if p == "block_jacobi":
-        _not_ported("preconditioner='block_jacobi'", 9, "the scalar-DIA path")
     if p in ("ilu0", "none"):
         _not_ported(f"preconditioner={p!r}", 11,
                     "other preconditioners and solvers")
-    if p != "two_level":
+    if p not in ("two_level", "block_jacobi"):
         raise ValueError(f"unknown preconditioner {p!r}")
-    if sc.spmv != "plane":
-        _not_ported(f"spmv={sc.spmv!r}", 9, "the scalar-DIA path")
+    if sc.spmv not in SPMV_CHOICES:
+        raise ValueError(f"unknown spmv {sc.spmv!r}; one of {SPMV_CHOICES}")
     if sc.deflation_k:
         _not_ported("deflation_k", 13, "deflation")
     if sc.coarse_basis == "linear":
@@ -204,14 +218,22 @@ def _check_krylov(sc: SolverConfig, nv: int) -> None:
         _not_ported("coarse_smooth_omega", 10, "the coarse variants")
     if sc.matvec_dtype is not None:
         _not_ported("matvec_dtype", 3, "the plane layout and K1")
-    agg = sc.coarse_agg
-    if agg is not None and 4 * (-(-nv // agg)) > sc.coarse_dense_max:
-        _not_ported(f"the multilevel coarse path (nc={4 * (-(-nv // agg))} "
-                    f"> coarse_dense_max={sc.coarse_dense_max})", 10,
-                    "the coarse variants")
-    if sc.coarse_cheby and not 0.0 < sc.coarse_cheby_fraction < 1.0:
-        raise ValueError("coarse_cheby_fraction must be in (0, 1), got "
-                         f"{sc.coarse_cheby_fraction}")
+    if sc.coarse_cheby:
+        if p != "two_level":
+            raise ValueError("coarse_cheby is the two_level post-smoother; "
+                             "set preconditioner='two_level' (or "
+                             "coarse_cheby=0)")
+        if not 0.0 < sc.coarse_cheby_fraction < 1.0:
+            raise ValueError("coarse_cheby_fraction must be in (0, 1), got "
+                             f"{sc.coarse_cheby_fraction}")
+    n_agg = -(-nv // sc.coarse_agg)
+    if p == "two_level" and 4 * n_agg > sc.coarse_dense_max:
+        nc2 = 4 * -(-n_agg // second_level_agg(4 * n_agg,
+                                               sc.coarse_dense_max))
+        if nc2 > sc.coarse_dense_max:
+            raise ValueError(f"second coarse level still too large (nc2={nc2}"
+                             f" > {sc.coarse_dense_max}); raise coarse_agg "
+                             "or coarse_dense_max")
 
 
 def check_supported(cfg: NSConfig, nv: int) -> None:

@@ -10,9 +10,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
 from navierstokes_tpu_torch.mesh.core import Mesh
+from navierstokes_tpu_torch.solvers.coarse import CoarseSpace
+from navierstokes_tpu_torch.sparse.dia import ScalarDIA
 
 
 def mesh_from_jax(mesh) -> Mesh:
@@ -37,6 +40,58 @@ def state_to_numpy(x) -> np.ndarray:
     if hasattr(x, "detach"):
         x = x.detach().cpu()
     return np.asarray(x)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def scalar_dia_from_jax(dia, device="cpu") -> ScalarDIA:
+    """A JAX-package `ScalarDIA` (offsets, data, nnz) -> the port's."""
+    return ScalarDIA(offsets=tuple(int(d) for d in dia.offsets),
+                     data=_tensor(dia.data, device), nnz=int(dia.nnz))
+
+
+def _coarse_space(cs) -> CoarseSpace:
+    return CoarseSpace(n_agg=int(cs.n_agg), agg_size=int(cs.agg_size),
+                       nb=int(cs.nb))
+
+
+def prep_from_jax(prep, device="cpu"):
+    """A JAX-package prepared scalar-DIA tuple -> the port's prep.
+
+    'bj': ("bj", s_offsets, s_data, invd_offsets, invd_data);
+    'tl': ("tl", offsets, data, invd_offsets, invd_data, c_arrays,
+    c_static[, cheby]) with c_static ("dense", cs) or ("ml", cs, c_off,
+    cs2).  Pretiled (3-D) data is not taken: prepare it off the TPU."""
+    from navierstokes_tpu_torch.model.navier_stokes import (
+        BlockJacobiPrep,
+        DenseCoarse,
+        MultilevelCoarse,
+        ScalarTwoLevelPrep,
+    )
+
+    kind = prep[0]
+    if np.ndim(prep[2]) != 2:
+        raise ValueError("prep_from_jax takes row-major (K, n) DIA data")
+    if kind == "bj":
+        return BlockJacobiPrep(tuple(prep[1]), _tensor(prep[2], device),
+                               _tensor(prep[4], device))
+    if kind != "tl":
+        raise ValueError(f"prep_from_jax takes 'bj' or 'tl', got {kind!r}")
+    c_arrays, c_static = prep[5], prep[6]
+    if c_static[0] == "dense":
+        coarse = DenseCoarse(_tensor(c_arrays[0], device))
+    elif c_static[0] == "ml":
+        ac1, invd1, ac2_inv = (_tensor(a, device) for a in c_arrays)
+        coarse = MultilevelCoarse(tuple(c_static[2]), ac1, invd1,
+                                  _coarse_space(c_static[3]), ac2_inv)
+    else:
+        raise ValueError(f"coarse level {c_static[0]!r} is not ported")
+    return ScalarTwoLevelPrep(
+        tuple(prep[1]), _tensor(prep[2], device), _tensor(prep[4], device),
+        coarse, _coarse_space(c_static[1]),
+        cheby=tuple(prep[7]) if len(prep) > 7 else None)
 
 
 def planes_from_tiled(tiled) -> np.ndarray:

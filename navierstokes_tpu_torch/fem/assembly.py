@@ -3,7 +3,7 @@
 The block sparsity pattern is built once on the host.  Each element's 256
 scalar entries map to fixed flat positions `k * ndof + row` of the (K, ndof)
 DIA layout (`dia_elem_map`), so assembling an operator is one batched
-element computation per chunk of elements and one flat `index_add_`.
+element computation per chunk of elements and one flat scatter-add.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 from navierstokes_tpu_torch.fem import elements as el
 from navierstokes_tpu_torch.fem.dirichlet import DirichletBC, build_dirichlet
 from navierstokes_tpu_torch.mesh.core import Mesh
+from navierstokes_tpu_torch.ops.scatter import index_add_fixed_order
 from navierstokes_tpu_torch.sparse.bcsr import bcsr_pattern_from_coo
 from navierstokes_tpu_torch.sparse.dia import DIAPattern, build_dia_pattern
 
@@ -93,8 +94,8 @@ def assemble_dia_values(vol: torch.Tensor, grad: torch.Tensor,
 
     Elements go in chunks of `chunk` (bounded intermediates at any mesh
     size); each chunk's (chunk, 256) blocks are added into the flat layout
-    with one `index_add_`.  On CUDA the adds are atomics whose order is not
-    fixed, so float32 operators differ from run to run in the last bits."""
+    with one scatter-add in a fixed order, so an operator assembled on the
+    card is the same in every run."""
     ne = vol.shape[0]
     flat = torch.zeros(K * ndof, dtype=vol.dtype, device=vol.device)
     emap = dia_elem_map.reshape(ne, 256)
@@ -102,5 +103,5 @@ def assemble_dia_values(vol: torch.Tensor, grad: torch.Tensor,
         e = slice(s, min(s + chunk, ne))
         blocks = el.element_node_blocks(grad[e], vol[e], h[e], dt, reynolds,
                                         delta, terms=terms)
-        flat.index_add_(0, emap[e].reshape(-1), blocks.reshape(-1))
+        index_add_fixed_order(flat, emap[e].reshape(-1), blocks.reshape(-1))
     return flat.reshape(K, ndof)

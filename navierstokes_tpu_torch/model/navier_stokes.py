@@ -5,16 +5,27 @@ Pipeline per run (the reference's `src/solve_newton.c:925-1323`):
   1. Stokes initialization: assemble the steady Stokes operator with the
      small Stokes Reynolds number, apply Dirichlet rows, GMRES-solve.
   2. Time loop: per Newton iteration insert BC values, evaluate the
-     residual F = A_lin u - (M/dt) u_old (two plane SpMVs), test
-     convergence, solve J du = -F with GMRES on the constant, once-prepared
-     exact Jacobian.
+     residual F = A_lin u - (M/dt) u_old (two SpMVs), test convergence,
+     solve J du = -F with GMRES on the constant, once-prepared exact
+     Jacobian.
 
-The ported slice is the flagship single-device path of the JAX package's
-`model/navier_stokes.py`: the operator in component-plane layout (kernel K1,
-`ops/plane_dia.py`), the two-level preconditioner with a dense coarse
-inverse and a Jacobi or Chebyshev post-smoother, GMRES with CGS2.  Newton
-and GMRES are Python loops over device tensors; the host reads only the
-norms and Hessenberg columns it branches on.
+The ported paths are the single-device paths of the JAX package's
+`model/navier_stokes.py`, one prepared-operator kind each:
+
+  - 'tlp' (`PlanePrep`): the two-level preconditioner on the
+    component-plane layout (spmv='plane', the f32 flagship), every
+    operator apply through kernel K1 (`ops/plane_dia.py`);
+  - 'tl' (`ScalarTwoLevelPrep`): the same two-level cycle on the
+    scalar-DIA layout (spmv auto/xla/pallas);
+  - 'bj' (`BlockJacobiPrep`): block-Jacobi folded into the operator,
+    S = D^{-1} A, with the Neumann boost (the float64 default).
+
+The scalar-DIA applies (A, S, the 7-diagonal D^{-1}, the multilevel
+coarse level, the scalar residual) run kernel K2 (`ops/dia.py`).  Both
+two-level kinds take a dense coarse inverse or, above `coarse_dense_max`,
+the multilevel coarse level.  Newton and GMRES are Python loops over device
+tensors; the host reads only the norms and Hessenberg columns it branches
+on.
 """
 
 from __future__ import annotations
@@ -22,12 +33,16 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch.config import NSConfig, resolve_supported
+from navierstokes_tpu_torch.config import (
+    NSConfig,
+    resolve_supported,
+    second_level_agg,
+)
 from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
     STOKES_TERMS,
@@ -37,6 +52,7 @@ from navierstokes_tpu_torch.fem.assembly import (
 )
 from navierstokes_tpu_torch.io.dat import write_petsc_vec
 from navierstokes_tpu_torch.mesh.core import Mesh
+from navierstokes_tpu_torch.ops import dia as dia_ops
 from navierstokes_tpu_torch.ops.block import block4_inverse
 from navierstokes_tpu_torch.ops.plane_dia import (
     extract_planes,
@@ -49,8 +65,12 @@ from navierstokes_tpu_torch.ops.plane_dia import (
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
     build_aggregates,
+    coarse_dia_offsets,
+    coarse_operator_dia,
     coarse_operator_inverse_dia,
+    prolong,
     prolong_planes,
+    restrict,
     restrict_planes,
 )
 from navierstokes_tpu_torch.solvers.deflation import arnoldi
@@ -60,9 +80,13 @@ from navierstokes_tpu_torch.solvers.gmres import (
     scalar_type,
 )
 from navierstokes_tpu_torch.sparse.dia import (
+    block_diag_to_dia,
     diag_blocks_from_dia,
+    scale_rows_dia,
     zero_rows_dia,
 )
+
+DINV_OFFSETS = tuple(range(-3, 4))    # the block-diagonal D^{-1} in DIA form
 
 
 class NewtonStats(NamedTuple):
@@ -74,19 +98,72 @@ class NewtonStats(NamedTuple):
 
 
 @dataclasses.dataclass
+class DenseCoarse:
+    """Dense coarse level: A_c^{-1}, one (nc, nc) GEMV per apply."""
+
+    ac_inv: torch.Tensor
+
+
+@dataclasses.dataclass
+class MultilevelCoarse:
+    """Sparse coarse level (the JAX package's 'ml'): A_c in scalar-DIA form,
+    solved by two-grid cycles with a dense second aggregation level and
+    damped block-Jacobi smoothing."""
+
+    offsets: tuple              # coarse DIA offsets (coarse_dia_offsets)
+    ac1: torch.Tensor           # (Kc, nc) level-1 operator
+    invd1: torch.Tensor         # (7, nc) level-1 block-diagonal inverse
+    cs2: CoarseSpace            # second aggregation level
+    ac2_inv: torch.Tensor       # (nc2, nc2) dense level-2 inverse
+
+
+Coarse = Union[DenseCoarse, MultilevelCoarse]
+
+
+@dataclasses.dataclass
 class PlanePrep:
     """A prepared two-level operator on the component-plane layout (the JAX
-    package's 'tlp' prep): operator planes, plane-form D^{-1}, the dense
-    coarse inverse and the optional Chebyshev interval."""
+    package's 'tlp' prep): operator planes, plane-form D^{-1}, the coarse
+    level and the optional Chebyshev interval."""
 
+    kind = "tlp"
     node_offsets: tuple
     p4: torch.Tensor            # (4, 4 * N_D, nbp) operator planes
     d16: torch.Tensor           # (16, nbp): row 4a+b holds D^{-1}[:, a, b]
-    ac_inv: torch.Tensor        # (nc, nc) dense coarse inverse
+    coarse: Coarse
     cs: CoarseSpace
     nb: int
     nbp: int
     cheby: Optional[tuple] = None   # (theta, delta, degree)
+
+
+@dataclasses.dataclass
+class ScalarTwoLevelPrep:
+    """A prepared two-level operator on the scalar-DIA layout (the JAX
+    package's 'tl' prep): the operator, the 7-diagonal D^{-1}, the coarse
+    level and the optional Chebyshev interval."""
+
+    kind = "tl"
+    offsets: tuple
+    data: torch.Tensor          # (K, ndof) operator
+    invd: torch.Tensor          # (7, ndof) D^{-1}, offsets DINV_OFFSETS
+    coarse: Coarse
+    cs: CoarseSpace
+    cheby: Optional[tuple] = None
+
+
+@dataclasses.dataclass
+class BlockJacobiPrep:
+    """Block-Jacobi folded into the operator (the JAX package's 'bj' prep):
+    S = D^{-1} A in scalar-DIA form, and D^{-1} for the right-hand side."""
+
+    kind = "bj"
+    s_offsets: tuple
+    s_data: torch.Tensor        # (K', ndof)
+    invd: torch.Tensor          # (7, ndof)
+
+
+Prep = Union[PlanePrep, ScalarTwoLevelPrep, BlockJacobiPrep]
 
 
 def _sync(device: torch.device) -> None:
@@ -97,8 +174,10 @@ def _sync(device: torch.device) -> None:
 class NavierStokesSolver:
     """Load mesh -> Stokes init -> step -> dump, on one device.
 
-    `device` is explicit ("cuda" or "cpu").  On the card every plane SpMV
-    launches K1; on the CPU it runs K1's plain PyTorch version."""
+    `device` is explicit ("cuda" or "cpu").  On the card every SpMV
+    launches K1 (plane layout) or K2 (scalar-DIA layout; spmv='xla' runs
+    K2's plain version instead); on the CPU the kernels' plain PyTorch
+    versions run."""
 
     def __init__(self, mesh: Mesh, cfg: Optional[NSConfig] = None,
                  disc: Optional[Discretization] = None, *,
@@ -119,12 +198,25 @@ class NavierStokesSolver:
         self.disc = disc if disc is not None else build_discretization(
             mesh, dtype=self.dtype, device=self.device)
         nb = mesh.nv
-        self._coarse_space = build_aggregates(nb, self.cfg.krylov.coarse_agg)
-        self._nbp = plane_nbp(nb, self._coarse_space.nb_pad)
-        self._noffs = node_offsets_from_scalar(self.disc.dia_pattern.offsets)
+        kr = self.cfg.krylov
+        self._coarse_space = build_aggregates(nb, kr.coarse_agg)
+        self._coarse_l2 = None          # (offsets, CoarseSpace), built once
+        self._plane = kr.preconditioner == "two_level" and kr.spmv == "plane"
+        if self._plane:
+            self._nbp = plane_nbp(nb, self._coarse_space.nb_pad)
+            self._noffs = node_offsets_from_scalar(
+                self.disc.dia_pattern.offsets)
         self._prepared = False
         self.stokes_result: Optional[GMRESResult] = None
         self.history: list = []     # (step, NewtonStats, seconds) per step
+
+    @property
+    def prep_kind(self) -> str:
+        """The prepared-operator kind this config builds: 'tlp', 'tl' or
+        'bj'."""
+        if self.cfg.krylov.preconditioner == "block_jacobi":
+            return BlockJacobiPrep.kind
+        return PlanePrep.kind if self._plane else ScalarTwoLevelPrep.kind
 
     # -- assembly and operator preparation -----------------------------------
 
@@ -142,34 +234,77 @@ class NavierStokesSolver:
         offs = self.disc.dia_pattern.offsets
         jlin = self._assemble_dia(LINEAR_TERMS, self.cfg.reynolds)
         jlin_bc = zero_rows_dia(offs, jlin, self.disc.bc.is_bc)
-        self._exact_prep = self._prepare_operator_dia(jlin_bc)
-        # The residual operator differs from the prepared one only in BC
-        # rows, which check() masks out of F: share the planes.
-        self._res_A = self._exact_prep.p4
+        prep = self._prepare_operator_dia(jlin_bc)
+        self._exact_prep = prep
         mass = self._assemble_dia(frozenset({"mass_dt_bare"}),
                                   self.cfg.reynolds)
-        self._res_M = extract_planes(offs, mass, self.disc.nv,
-                                     node_offsets=self._noffs, nbp=self._nbp)
+        # The residual operator differs from the prepared two-level one
+        # only in BC rows, which check() masks out of F: share it.  The
+        # block-Jacobi S is pre-scaled by D^{-1}, so 'bj' keeps its own.
+        if isinstance(prep, PlanePrep):
+            self._res_A = prep.p4
+            self._res_M = extract_planes(offs, mass, self.disc.nv,
+                                         node_offsets=self._noffs,
+                                         nbp=self._nbp)
+        else:
+            self._res_A = prep.data if isinstance(
+                prep, ScalarTwoLevelPrep) else jlin
+            self._res_M = mass
         self._prepared = True
 
-    def _prepare_operator_dia(self, dia_data: torch.Tensor) -> PlanePrep:
-        """BC-applied DIA data -> the two-level plane prep."""
+    def _prepare_operator_dia(self, dia_data: torch.Tensor) -> Prep:
+        """BC-applied DIA data -> the prep of the configured kind."""
         d = self.disc
         cfgk = self.cfg.krylov
         offsets = d.dia_pattern.offsets
-        nb, nbp, cs = d.nv, self._nbp, self._coarse_space
+        nb = d.nv
         inv_diag = block4_inverse(diag_blocks_from_dia(offsets, dia_data, nb),
                                   pivot_eps=1e-300, shift=1e-8)
-        ac_inv = coarse_operator_inverse_dia(cs, offsets, dia_data,
-                                             shift=cfgk.coarse_shift)
-        p4 = extract_planes(offsets, dia_data, nb, node_offsets=self._noffs,
-                            nbp=nbp)
-        d16 = torch.zeros((16, nbp), dtype=self.dtype, device=self.device)
-        d16[:, :nb] = inv_diag.permute(1, 2, 0).reshape(16, nb)
-        return self._maybe_append_cheby(
-            PlanePrep(self._noffs, p4, d16, ac_inv, cs, nb, nbp))
+        if cfgk.preconditioner == "block_jacobi":
+            s_offsets, s_data = scale_rows_dia(d.dia_pattern, dia_data,
+                                               inv_diag)
+            return BlockJacobiPrep(s_offsets, s_data,
+                                   block_diag_to_dia(inv_diag).data)
+        coarse = self._prepare_coarse(offsets, dia_data)
+        cs = self._coarse_space
+        if self._plane:
+            nbp = self._nbp
+            p4 = extract_planes(offsets, dia_data, nb,
+                                node_offsets=self._noffs, nbp=nbp)
+            d16 = torch.zeros((16, nbp), dtype=self.dtype, device=self.device)
+            d16[:, :nb] = inv_diag.permute(1, 2, 0).reshape(16, nb)
+            prep = PlanePrep(self._noffs, p4, d16, coarse, cs, nb, nbp)
+        else:
+            prep = ScalarTwoLevelPrep(offsets, dia_data,
+                                      block_diag_to_dia(inv_diag).data,
+                                      coarse, cs)
+        return self._maybe_append_cheby(prep)
 
-    def _maybe_append_cheby(self, prep: PlanePrep) -> PlanePrep:
+    def _prepare_coarse(self, offsets: tuple,
+                        dia_data: torch.Tensor) -> Coarse:
+        """The coarse level: a dense inverse when nc <= coarse_dense_max,
+        else the multilevel level (sparse A_c, dense second level)."""
+        cfgk = self.cfg.krylov
+        cs = self._coarse_space
+        if cs.nc <= cfgk.coarse_dense_max:
+            return DenseCoarse(coarse_operator_inverse_dia(
+                cs, offsets, dia_data, shift=cfgk.coarse_shift))
+        if self._coarse_l2 is None:
+            self._coarse_l2 = (
+                coarse_dia_offsets(offsets, cs.agg_size),
+                build_aggregates(cs.n_agg, second_level_agg(
+                    cs.nc, cfgk.coarse_dense_max)))
+        c_off, cs2 = self._coarse_l2
+        ac1 = coarse_operator_dia(cs, offsets, dia_data, c_off,
+                                  shift=cfgk.coarse_shift)
+        invd1 = block_diag_to_dia(block4_inverse(
+            diag_blocks_from_dia(c_off, ac1, cs.n_agg), pivot_eps=1e-300,
+            shift=1e-8)).data
+        ac2_inv = coarse_operator_inverse_dia(cs2, c_off, ac1,
+                                              shift=cfgk.coarse_shift)
+        return MultilevelCoarse(c_off, ac1, invd1, cs2, ac2_inv)
+
+    def _maybe_append_cheby(self, prep):
         """Attach the Chebyshev interval [f*lmax, 1.05*lmax] when
         coarse_cheby > 0 (lmax from a short Arnoldi sweep, once)."""
         deg = self.cfg.krylov.coarse_cheby
@@ -181,13 +316,14 @@ class NavierStokesSolver:
         prep.cheby = (float((a + b) / 2), float((b - a) / 2), int(deg))
         return prep
 
-    def _estimate_smoother_lmax(self, prep: PlanePrep, m: int = 20) -> float:
+    def _estimate_smoother_lmax(self, prep, m: int = 20) -> float:
         """max |Ritz value| of G = D^{-1}A from an m-step Arnoldi sweep
         started from the BC value vector (ones if that is zero)."""
         rhs = self.disc.bc.value.to(self.dtype)
         if not float(torch.linalg.norm(rhs)):
             rhs = torch.ones_like(rhs)
-        rhs = to_planes(rhs, prep.nb, prep.nbp)
+        if isinstance(prep, PlanePrep):
+            rhs = to_planes(rhs, prep.nb, prep.nbp)
         m = min(m, rhs.shape[0] - 2)
         _, _, parts = self._prep_operators(prep)
         _, H = arnoldi(lambda x: parts["apply_Dinv"](parts["apply_A"](x)),
@@ -195,12 +331,47 @@ class NavierStokesSolver:
         theta = np.linalg.eigvals(H.cpu().numpy().astype(np.float64)[:m])
         return float(np.max(np.abs(theta)))
 
-    @staticmethod
-    def _make_coarse_solve(ac_inv: torch.Tensor):
-        """Dense coarse solve: one (nc, nc) GEMV in full float32/float64."""
-        def coarse_solve(rc):
-            return ac_inv @ rc
-        return coarse_solve
+    # -- operator applies ----------------------------------------------------
+
+    def _spmv(self, offsets: tuple, data: torch.Tensor,
+              x: torch.Tensor) -> torch.Tensor:
+        """Every scalar-DIA apply (the JAX package's `_spmv` and
+        `_spmv_small`): K2 on the card for spmv auto/pallas/plane, in f32
+        and f64 alike; spmv='xla' runs K2's plain version, kernel-free."""
+        if self.cfg.krylov.spmv == "xla":
+            return dia_ops.spmv_dia_plain(offsets, data, x)
+        return dia_ops.spmv_dia(offsets, data, x)
+
+    def _make_coarse_solve(self, coarse: Coarse):
+        """Coarse-level solve, shared by 'tl' and 'tlp'.  Dense: one
+        (nc, nc) GEMV in full float32/float64.  Multilevel: the sparse
+        level-1 system is solved by two-grid cycles (dense level-2
+        correction, then damped level-1 block-Jacobi sweeps)."""
+        if isinstance(coarse, DenseCoarse):
+            ac_inv = coarse.ac_inv
+
+            def dense_solve(rc):
+                return ac_inv @ rc
+            return dense_solve
+
+        kr = self.cfg.krylov
+        c_off, ac1, cs2 = coarse.offsets, coarse.ac1, coarse.cs2
+
+        def ml_solve(rc):
+            zc = None           # zero start: the first residual is rc
+            for _ in range(kr.coarse_ml_cycles):
+                r1 = rc if zc is None else rc - self._spmv(c_off, ac1, zc)
+                corr = prolong(cs2, coarse.ac2_inv @ restrict(cs2, r1))
+                zc = corr if zc is None else zc + corr
+                for _ in range(kr.coarse_ml_smooth):
+                    # damp < 1 keeps the sweeps stable when smoothing:
+                    # undamped Jacobi diverges on the saddle-point coarse
+                    # operator (JAX SolverConfig.coarse_ml_damp)
+                    zc = zc + kr.coarse_ml_damp * self._spmv(
+                        DINV_OFFSETS, coarse.invd1,
+                        rc - self._spmv(c_off, ac1, zc))
+            return zc
+        return ml_solve
 
     @staticmethod
     def _make_smoother(apply_A, apply_Dinv, cheby):
@@ -227,30 +398,51 @@ class NavierStokesSolver:
 
         return smooth
 
-    def _prep_operators(self, prep: PlanePrep):
-        """Prep -> (matvec, minv, parts): the left-preconditioned operator
-        GMRES iterates, the preconditioner, and the applies of A and D^{-1}
-        (for the smoother's lmax estimate)."""
-        noffs, p4, d16 = prep.node_offsets, prep.p4, prep.d16
-        cs, nb, nbp = prep.cs, prep.nb, prep.nbp
-        d3 = d16.reshape(4, 4, nbp)
-        coarse_solve = self._make_coarse_solve(prep.ac_inv)
+    def _prep_operators(self, prep: Prep):
+        """Prep -> (matvec, b_prep, parts): the left-preconditioned operator
+        GMRES iterates, the map of the raw right-hand side to the
+        preconditioned one, and the component applies (apply_A and
+        apply_Dinv feed the smoother's lmax estimate)."""
+        if isinstance(prep, BlockJacobiPrep):
+            return self._bj_operators(prep)
+        if isinstance(prep, PlanePrep):
+            noffs, p4, nb, nbp, cs = (prep.node_offsets, prep.p4, prep.nb,
+                                      prep.nbp, prep.cs)
+            d3 = prep.d16.reshape(4, 4, nbp)
 
-        def apply_A(x):
-            return spmv_plane(noffs, p4, x, nb=nb)
+            def apply_A(x):
+                return spmv_plane(noffs, p4, x, nb=nb)
 
-        def apply_Dinv(r):
-            # block-diagonal D^{-1}: 16 elementwise plane multiplies
-            return (d3 * r.reshape(1, 4, nbp)).sum(1).reshape(-1)
+            def apply_Dinv(r):
+                # block-diagonal D^{-1}: 16 elementwise plane multiplies
+                return (d3 * r.reshape(1, 4, nbp)).sum(1).reshape(-1)
 
-        def coarse(r):
-            zc = coarse_solve(restrict_planes(cs, r, nbp))
-            return prolong_planes(cs, zc, nbp, nb)
+            def to_coarse(r):
+                return restrict_planes(cs, r, nbp)
 
+            def from_coarse(zc):
+                return prolong_planes(cs, zc, nbp, nb)
+        else:
+            cs = prep.cs
+
+            def apply_A(x):
+                return self._spmv(prep.offsets, prep.data, x)
+
+            def apply_Dinv(r):
+                return self._spmv(DINV_OFFSETS, prep.invd, r)
+
+            def to_coarse(r):
+                return restrict(cs, r)
+
+            def from_coarse(zc):
+                return prolong(cs, zc)
+
+        coarse_solve = self._make_coarse_solve(prep.coarse)
         smooth = self._make_smoother(apply_A, apply_Dinv, prep.cheby)
 
         def minv(r):
-            z = coarse(r)
+            # multiplicative two-grid: coarse correction, then smoothing
+            z = from_coarse(coarse_solve(to_coarse(r)))
             return z + smooth(r - apply_A(z))
 
         def matvec(x):
@@ -258,15 +450,42 @@ class NavierStokesSolver:
 
         return matvec, minv, {"apply_A": apply_A, "apply_Dinv": apply_Dinv}
 
-    def _solve_prepared(self, prep: PlanePrep, rhs: torch.Tensor,
+    def _bj_operators(self, prep: BlockJacobiPrep):
+        """'bj': GMRES on the Neumann-boosted S = D^{-1} A; each term of
+        the order-`neumann_order` series costs one more apply of S."""
+        order = self.cfg.krylov.neumann_order
+
+        def apply_S(x):
+            return self._spmv(prep.s_offsets, prep.s_data, x)
+
+        def neumann(r):
+            acc = r
+            cur = r
+            for _ in range(order):
+                cur = cur - apply_S(cur)
+                acc = acc + cur
+            return acc
+
+        def matvec(x):
+            return neumann(apply_S(x))
+
+        def b_prep(rhs):
+            return neumann(self._spmv(DINV_OFFSETS, prep.invd, rhs))
+
+        return matvec, b_prep, {"apply_S": apply_S, "neumann": neumann}
+
+    def _solve_prepared(self, prep: Prep, rhs: torch.Tensor,
                         solver_cfg) -> GMRESResult:
-        """Left-preconditioned GMRES; the Krylov space lives in plane-major
-        vectors, converted in and out once per solve."""
+        """Left-preconditioned GMRES.  On the plane layout the Krylov space
+        lives in plane-major vectors, converted in and out once per
+        solve."""
+        if not isinstance(prep, PlanePrep):
+            return self._solve_prepared_raw(prep, rhs, solver_cfg)
         res = self._solve_prepared_raw(
             prep, to_planes(rhs, prep.nb, prep.nbp), solver_cfg)
         return res._replace(x=from_planes(res.x, prep.nb, prep.nbp))
 
-    def _solve_prepared_raw(self, prep: PlanePrep, rhs: torch.Tensor,
+    def _solve_prepared_raw(self, prep: Prep, rhs: torch.Tensor,
                             solver_cfg) -> GMRESResult:
         matvec, b_prep, _ = self._prep_operators(prep)
         return gmres(matvec, b_prep(rhs), restart=solver_cfg.restart,
@@ -298,24 +517,37 @@ class NavierStokesSolver:
 
     # -- Newton time step ----------------------------------------------------
 
+    def _residual_fn(self, u_old: torch.Tensor):
+        """u -> A_lin u - (M/dt) u_old on the residual operators' layout;
+        (M/dt) u_old is fixed for the step and applied once."""
+        res_A, res_M = self._res_A, self._res_M
+        if self._plane:
+            noffs, nb, nbp = self._noffs, self.disc.nv, self._nbp
+            mass_uold = spmv_plane(noffs, res_M, to_planes(u_old, nb, nbp),
+                                   nb=nb)
+
+            def plane_residual(u):
+                f = spmv_plane(noffs, res_A, to_planes(u, nb, nbp), nb=nb) \
+                    - mass_uold
+                return from_planes(f, nb, nbp)
+            return plane_residual
+
+        offs = self.disc.dia_pattern.offsets
+        mass_uold = self._spmv(offs, res_M, u_old)
+
+        def scalar_residual(u):
+            return self._spmv(offs, res_A, u) - mass_uold
+        return scalar_residual
+
     def _newton_step(self, u_init, u_old, delta_u_init):
         cfg, nw, sc = self.cfg, self.cfg.newton, self._sc
         dtype = self.dtype
         prep = self._exact_prep
-        noffs, nb, nbp = self._noffs, self.disc.nv, self._nbp
         is_bc = self.disc.bc.is_bc
         bc_value = self.disc.bc.value.to(dtype)
         zero = torch.zeros((), dtype=dtype, device=self.device)
         max_newton = nw.max_iter
-
-        # (M/dt) u_old is fixed for the step
-        mass_uold = spmv_plane(noffs, self._res_M,
-                               to_planes(u_old.to(dtype), nb, nbp), nb=nb)
-
-        def residual(u):
-            f = spmv_plane(noffs, self._res_A, to_planes(u, nb, nbp), nb=nb) \
-                - mass_uold
-            return from_planes(f, nb, nbp)
+        residual = self._residual_fn(u_old.to(dtype).contiguous())
 
         def check(u, delta_u):
             """BC insert + residual + the two norms (one host sync)."""

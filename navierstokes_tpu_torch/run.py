@@ -3,15 +3,18 @@
     python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 5
     python -m navierstokes_tpu_torch.run --matrix-id 6 --re 300 --dt 1e-3 \
         --t-final 1.0 --delta 0.05 --save --save-dir res
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --spmv pallas --steps 5
     python -m navierstokes_tpu_torch.run --nx 4 --ny 2 --nz 2 --steps 2 \
         --device cpu
 
-Runs on one device (`--device`, default `cuda`; `cpu` runs K1's plain
-PyTorch version).  float32 (the default) is the flagship configuration:
-the measured Newton tolerances and `default_f32_krylov()`.  float64 takes
-the JAX CLI's float64 defaults, whose block-Jacobi preconditioner is not
-ported yet and raises NotImplementedError.  Per-step output mirrors the
-reference Newton monitor; `--save` writes PETSc-ASCII
+Runs on one device (`--device`, default `cuda`; `cpu` runs the kernels'
+plain PyTorch versions).  As in the JAX CLI, `--dtype` defaults to float32
+on the card and float64 on the CPU.  float32 is the flagship
+configuration: the measured Newton tolerances and `default_f32_krylov()`.
+float64 takes the JAX CLI's float64 defaults: `SolverConfig()`, which is
+block-Jacobi with a Neumann-2 boost on the scalar-DIA layout.  The Krylov
+flags override both the Newton and the Stokes solver configs.  Per-step
+output mirrors the reference Newton monitor; `--save` writes PETSc-ASCII
 `solution_stepNNNN.dat` files byte-compatible with the golden corpus.
 """
 
@@ -49,6 +52,11 @@ class RunOutput:
     steps_s: float
 
 
+# CLI flags that override SolverConfig fields of the same name.
+_KRYLOV_FLAGS = ("spmv", "preconditioner", "neumann_order", "coarse_agg",
+                 "coarse_ml_smooth", "coarse_ml_cycles", "coarse_ml_damp",
+                 "coarse_cheby", "coarse_cheby_fraction", "restart", "cgs2")
+
 _NOT_PORTED = {
     "msh": ("--msh (Gmsh meshes)", 1, "config and host layer"),
     "vtu": ("--vtu", 7, "I/O and the full CLI"),
@@ -72,13 +80,46 @@ def main(argv=None) -> Optional[RunOutput]:
     p.add_argument("--steps", type=int, default=None,
                    help="override number of steps")
     p.add_argument("--delta", type=float, default=0.05)
-    p.add_argument("--dtype", default="float32",
-                   choices=["float32", "float64"])
+    p.add_argument("--dtype", default=None, choices=["float32", "float64"],
+                   help="default: float32 on cuda, float64 on cpu")
     p.add_argument("--save", action="store_true")
     p.add_argument("--save-dir", default="res")
     p.add_argument("--save-every", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    # Krylov knobs, applied to both the Newton and the Stokes solver.
+    p.add_argument("--spmv", choices=["auto", "xla", "pallas", "plane"],
+                   default=None,
+                   help="operator layout and kernel: plane = K1 on the "
+                        "component-plane layout (two_level); auto/pallas = "
+                        "K2 on the scalar-DIA layout; xla = K2's plain "
+                        "version, kernel-free (debugging)")
+    p.add_argument("--preconditioner", default=None,
+                   choices=["auto", "block_jacobi", "two_level", "schur",
+                            "ilu0", "none"],
+                   help="auto (the f32 default) = two_level + coarse_cheby=3 "
+                        "up to 150k rows, schur above (not ported)")
+    p.add_argument("--neumann-order", type=int, default=None,
+                   help="Neumann-series boost of block-Jacobi")
+    p.add_argument("--coarse-agg", type=int, default=None,
+                   help="two_level: nodes per aggregate")
+    p.add_argument("--coarse-ml-smooth", type=int, default=None,
+                   help="multilevel coarse: smoothing sweeps per cycle")
+    p.add_argument("--coarse-ml-cycles", type=int, default=None,
+                   help="multilevel coarse: two-grid cycles per apply")
+    p.add_argument("--coarse-ml-damp", type=float, default=None,
+                   help="damping of the level-1 Jacobi sweeps")
+    p.add_argument("--coarse-cheby", type=int, default=None,
+                   help="two_level post-smoother: degree-d Chebyshev sweep "
+                        "in D^{-1}A (0 = one Jacobi application)")
+    p.add_argument("--coarse-cheby-fraction", type=float, default=None,
+                   help="lower end of the Chebyshev interval as a fraction "
+                        "of lmax")
+    p.add_argument("--restart", type=int, default=None,
+                   help="GMRES restart length")
+    p.add_argument("--cgs2", default=None,
+                   choices=["xla", "pallas", "pallas_comp"],
+                   help="GMRES orthogonalization (pallas: not ported)")
     # Flags of the JAX CLI whose slices are not ported yet: they raise.
     p.add_argument("--msh", help="Gmsh 2.2 mesh file (not ported)")
     p.add_argument("--vtu", action="store_true", help="(not ported)")
@@ -129,7 +170,8 @@ def main(argv=None) -> Optional[RunOutput]:
     else:
         p.error("one of --matrix-id / --nx required")
 
-    if args.dtype == "float32":
+    dtype = args.dtype or ("float64" if device.type == "cpu" else "float32")
+    if dtype == "float32":
         # du_tol=inf: with the linear residual, the |F| test alone decides
         newton = NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
                               du_tol=float("inf"))
@@ -139,16 +181,25 @@ def main(argv=None) -> Optional[RunOutput]:
         newton = NewtonConfig()
         krylov = SolverConfig()
         stokes = SolverConfig(rtol=1e-12, atol=1e-12, maxiter=2000)
+    overrides = {field: getattr(args, field) for field in _KRYLOV_FLAGS
+                 if getattr(args, field) is not None}
+    krylov = dataclasses.replace(krylov, **overrides)
+    stokes = dataclasses.replace(stokes, **overrides)
     cfg = NSConfig(
         dt=args.dt, t_final=args.t_final, reynolds=args.re, delta=args.delta,
-        dtype=args.dtype, newton=newton, krylov=krylov, stokes_krylov=stokes,
+        dtype=dtype, newton=newton, krylov=krylov, stokes_krylov=stokes,
     )
     n_steps = args.steps if args.steps is not None else cfg.n_steps
 
     print(f"Matrix size : {4 * mesh.nv}")
-    print(f"device={device} dtype={args.dtype} nodes={mesh.nv} "
+    print(f"device={device} dtype={dtype} nodes={mesh.nv} "
           f"tets={mesh.ne}")
     solver = NavierStokesSolver(mesh, cfg, device=device)
+    kr = solver.cfg.krylov
+    print(f"preconditioner={kr.preconditioner} spmv={kr.spmv} "
+          f"prep={solver.prep_kind}"
+          + (" (kernel-free: K2's plain version)" if kr.spmv == "xla"
+             else ""))
     sync()
     setup_s = time.perf_counter() - t0
 

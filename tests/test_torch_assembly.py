@@ -133,3 +133,25 @@ def test_block4_inverse_float32_pivot_eps_rounds_to_zero():
     assert not np.isfinite(got[2]).all()
     fin = np.isfinite(ref)
     np.testing.assert_allclose(got[fin], ref[fin], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode,warn_only", [(False, False), (True, True)])
+def test_fixed_order_scatter_add_restores_the_mode(mode, warn_only):
+    """The assembly's scatter-add equals index_add_ and leaves PyTorch's
+    deterministic mode as it found it."""
+    from navierstokes_tpu_torch.ops.scatter import index_add_fixed_order
+
+    rng = np.random.default_rng(1)
+    idx = torch.as_tensor(rng.integers(0, 50, 2000))
+    vals = torch.as_tensor(rng.standard_normal(2000))
+    torch.use_deterministic_algorithms(mode, warn_only=warn_only)
+    try:
+        out = index_add_fixed_order(torch.zeros(50, dtype=torch.float64),
+                                    idx, vals)
+        assert torch.are_deterministic_algorithms_enabled() == mode
+        assert torch.is_deterministic_algorithms_warn_only_enabled() == \
+            warn_only
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = torch.zeros(50, dtype=torch.float64).index_add_(0, idx, vals)
+    torch.testing.assert_close(out, want, rtol=1e-14, atol=1e-14)

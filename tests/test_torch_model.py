@@ -1,6 +1,8 @@
-"""The ported slice as a whole: the flagship transient solve of the PyTorch
-package against the JAX package, the golden trajectory, the `.dat`
-writer, the CLI, and the options outside the slice."""
+"""The ported slices as a whole: the transient solve of the PyTorch package
+against the JAX package on each prepared-operator kind (the 'tlp' flagship,
+the scalar two-level 'tl', block-Jacobi 'bj', the multilevel coarse level),
+the golden trajectory, the `.dat` writer, the CLI, and the options outside
+the slices."""
 
 import dataclasses
 import os
@@ -12,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from navierstokes_tpu.config import NewtonConfig as JNewton
 from navierstokes_tpu.config import NSConfig as JNS
 from navierstokes_tpu.config import SolverConfig as JSolver
 from navierstokes_tpu.io.dat import write_petsc_vec as j_write
@@ -27,6 +30,8 @@ from navierstokes_tpu_torch.config import (
 from navierstokes_tpu_torch.io.dat import HEADER, read_petsc_vec, write_petsc_vec
 from navierstokes_tpu_torch.mesh import channel_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
+from navierstokes_tpu_torch.model.navier_stokes import MultilevelCoarse
+from navierstokes_tpu_torch.ops import dia as tdia
 
 from data_golden_trajectory import TRAJ
 
@@ -41,42 +46,131 @@ def _rel(a, b):
         np.asarray(b))
 
 
-def test_flagship_slice_matches_jax():
-    """Stokes + 3 steps at the flagship structure ('auto' -> two-level +
-    Chebyshev 3, plane layout, exact Jacobian, operator residual) in f64
-    with Krylov rtol 1e-12: states at rel 1e-9, Newton and GMRES counts
-    equal or within 1 per solve."""
-    kr = JSolver(rtol=1e-12, atol=1e-13, maxiter=4000,
-                 preconditioner="auto", spmv="plane")
+def _both_solvers(**krylov_kw):
+    """The JAX package's solver and the port's on channel(6,3,3) with an
+    obstacle, f64, Krylov rtol 1e-12, from one JAX config."""
+    kr = JSolver(rtol=1e-12, atol=1e-13, maxiter=4000, **krylov_kw)
     jcfg = JNS(dt=0.01, t_final=0.03, reynolds=100.0, delta=0.1,
                dtype="float64", krylov=kr, stokes_krylov=kr)
     jmesh = j_channel(6, 3, 3, obstacle=True)
     js = JSolverModel(jmesh, jcfg)
     ts = NavierStokesSolver(convert.mesh_from_jax(jmesh),
                             convert.config_from_jax(jcfg), device=CPU)
-    assert ts.cfg.krylov.preconditioner == js.cfg.krylov.preconditioner \
-        == "two_level"
-    assert ts.cfg.krylov.coarse_cheby == js.cfg.krylov.coarse_cheby == 3
-    assert ts.cfg.krylov.coarse_agg == js.cfg.krylov.coarse_agg == 48
+    return js, ts
 
+
+def _port_solver(ts, **krylov_kw):
+    """Another port solver on ts's mesh and discretization."""
+    kr = dataclasses.replace(ts.user_cfg.krylov, **krylov_kw)
+    cfg = dataclasses.replace(ts.user_cfg, krylov=kr, stokes_krylov=kr)
+    return NavierStokesSolver(ts.disc.mesh, cfg, disc=ts.disc, device=CPU)
+
+
+def _match_jax(js, ts, steps=3, same=()):
+    """Stokes + `steps` steps in both packages, each step from the same
+    (JAX) state: states at rel 1e-9, Newton counts within 1 and GMRES
+    counts within 1 per Newton iteration.  The port solvers in `same`
+    take the same inputs and must reach ts's states at rel 1e-9."""
     uj = js.stokes_init()
     ut = ts.stokes_init()
     assert ts.stokes_result.converged
     assert _rel(ut.numpy(), uj) <= 1e-9
+    for other in same:
+        assert _rel(other.stokes_init().numpy(), ut.numpy()) <= 1e-9
 
-    # both packages step from the same (JAX) state each time
     du = np.zeros(uj.shape)
     u_old = np.array(uj)
-    for _ in range(3):
+    for _ in range(steps):
         uj1, duj, sj = js.step(jnp.asarray(u_old), jnp.asarray(u_old),
                                jnp.asarray(du))
-        ut1, _, st = ts.step(torch.as_tensor(u_old), torch.as_tensor(u_old),
-                             torch.as_tensor(du))
+        args = (torch.as_tensor(u_old), torch.as_tensor(u_old),
+                torch.as_tensor(du))
+        ut1, _, st = ts.step(*args)
         assert bool(sj.converged) and st.converged
         assert abs(st.iters - int(sj.iters)) <= 1
         assert abs(st.lin_iters - int(sj.lin_iters)) <= st.iters
         assert _rel(ut1.numpy(), uj1) <= 1e-9
+        for other in same:
+            uo, _, so = other.step(*args)
+            assert so.converged
+            assert _rel(uo.numpy(), ut1.numpy()) <= 1e-9
         u_old, du = np.array(uj1), np.array(duj)
+
+
+def _check_prep_applies(js, ts):
+    """The JAX package's prepared tuple, carried over by
+    `convert.prep_from_jax`, gives the JAX operator applies in the port
+    (rel 1e-13); the port's own prep gives them at rel 1e-9."""
+    jprep = js._exact_prep
+    tprep = convert.prep_from_jax(jprep)
+    ts._ensure_prepared()
+    assert tprep.kind == ts._exact_prep.kind == jprep[0]
+    jmv, jb, _ = js._prep_operators(jprep)
+    x = np.random.default_rng(0).standard_normal(ts.disc.ndof)
+    want_mv, want_b = np.asarray(jmv(jnp.asarray(x))), np.asarray(
+        jb(jnp.asarray(x)))
+    for prep, bar in ((tprep, 1e-13), (ts._exact_prep, 1e-9)):
+        mv, b_prep, _ = ts._prep_operators(prep)
+        assert _rel(mv(torch.as_tensor(x)).numpy(), want_mv) <= bar
+        assert _rel(b_prep(torch.as_tensor(x)).numpy(), want_b) <= bar
+
+
+def test_flagship_slice_matches_jax():
+    """Stokes + 3 steps at the flagship structure ('auto' -> two-level +
+    Chebyshev 3, plane layout, exact Jacobian, operator residual) in f64
+    with Krylov rtol 1e-12: states at rel 1e-9, Newton and GMRES counts
+    equal or within 1 per solve."""
+    js, ts = _both_solvers(preconditioner="auto", spmv="plane")
+    assert ts.cfg.krylov.preconditioner == js.cfg.krylov.preconditioner \
+        == "two_level"
+    assert ts.cfg.krylov.coarse_cheby == js.cfg.krylov.coarse_cheby == 3
+    assert ts.cfg.krylov.coarse_agg == js.cfg.krylov.coarse_agg == 48
+    assert ts.prep_kind == "tlp"
+    _match_jax(js, ts)
+
+
+def test_scalar_two_level_matches_jax_and_plane():
+    """'tl': 'auto' on the scalar-DIA layout resolves to two-level +
+    Chebyshev 3, as in the JAX package; Stokes + 3 steps match JAX at the
+    flagship bars, and the port's own 'tlp' states at rel 1e-9."""
+    js, ts = _both_solvers(preconditioner="auto", spmv="auto")
+    assert ts.cfg.krylov.preconditioner == "two_level"
+    assert ts.cfg.krylov.coarse_cheby == js.cfg.krylov.coarse_cheby == 3
+    assert ts.prep_kind == "tl"
+    plane = _port_solver(ts, spmv="plane")
+    assert plane.prep_kind == "tlp"
+    _match_jax(js, ts, same=(plane,))
+    assert ts._res_A is ts._exact_prep.data      # the shared operator
+    _check_prep_applies(js, ts)
+
+
+@pytest.mark.parametrize("order,steps", [(2, 2), (0, 1)])
+def test_block_jacobi_matches_jax(order, steps):
+    """'bj' (S = D^{-1} A, Neumann boost of order 2 and 0): Stokes and
+    `steps` steps at the flagship bars."""
+    js, ts = _both_solvers(preconditioner="block_jacobi",
+                           neumann_order=order)
+    assert ts.prep_kind == "bj"
+    _match_jax(js, ts, steps=steps)
+    assert ts._exact_prep.s_offsets == ts.disc.dia_pattern.scaled_offsets
+    _check_prep_applies(js, ts)
+
+
+def test_multilevel_coarse_matches_jax():
+    """'ml' (coarse_agg=4, coarse_dense_max=64: nc = 112 > 64, a dense
+    second level of nc2 = 56) on the scalar layout against JAX, and on the
+    plane layout against the scalar one."""
+    js, ts = _both_solvers(preconditioner="two_level", coarse_agg=4,
+                           coarse_dense_max=64)
+    plane = _port_solver(ts, spmv="plane")
+    ts._ensure_prepared()
+    plane._ensure_prepared()
+    for s in (ts, plane):
+        assert isinstance(s._exact_prep.coarse, MultilevelCoarse)
+        assert s._exact_prep.coarse.cs2.nc == 56
+    assert js._exact_prep[6][0] == "ml"
+    _match_jax(js, ts, steps=2, same=(plane,))
+    _check_prep_applies(js, ts)
 
 
 def test_golden_trajectory_flagship_mode():
@@ -102,6 +196,39 @@ def test_golden_trajectory_flagship_mode():
         assert err < 1e-7, f"step {step}: {err:.2e}"
 
 
+def test_golden_trajectory_block_jacobi():
+    """The golden 5-step trajectory on the 'bj' path (the float64
+    default: block-Jacobi + Neumann 2, exact Jacobian), Krylov rtol 1e-13.
+    The port is held to 10x the JAX package's own error on this config,
+    and never looser than 1e-7."""
+    golden = np.asarray(TRAJ)
+    kr = JSolver(rtol=1e-13, atol=1e-14, maxiter=4000)
+    jcfg = JNS(dt=1e-3, t_final=5e-3, reynolds=100.0, delta=0.1,
+               dtype="float64", krylov=kr, stokes_krylov=kr,
+               newton=JNewton(rtol=1e-6, atol=1e-8, stol=1e-10, max_iter=30))
+    jmesh = j_channel(4, 2, 2)
+    errs = {}
+    for name, solver, to_np, wrap in (
+            ("jax", JSolverModel(jmesh, jcfg), np.asarray, jnp.asarray),
+            ("port", NavierStokesSolver(convert.mesh_from_jax(jmesh),
+                                        convert.config_from_jax(jcfg),
+                                        device=CPU),
+             lambda u: u.numpy(), torch.as_tensor)):
+        u = solver.stokes_init()
+        e = [_rel(to_np(u), golden[0])]
+        u_old, du = u, wrap(np.zeros(golden.shape[1]))
+        for step in range(1, 6):
+            u, du, st = solver.step(u, u_old, du)
+            u_old = u
+            assert bool(st.converged)
+            e.append(_rel(to_np(u), golden[step]))
+        errs[name] = max(e)
+    bar = min(10 * errs["jax"], 1e-7)
+    print(f"golden bj: JAX {errs['jax']:.3e}, port {errs['port']:.3e}, "
+          f"bar {bar:.3e}")
+    assert errs["port"] <= bar
+
+
 def test_dat_writer_byte_identical(tmp_path):
     rng = np.random.default_rng(0)
     vals = np.concatenate([rng.standard_normal(50), [0.0, -0.0, 1.0, -2.0,
@@ -120,7 +247,7 @@ def test_cli_writes_dat_files(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "navierstokes_tpu_torch.run", "--nx", "4",
          "--ny", "2", "--nz", "2", "--steps", "2", "--save", "--save-dir",
-         str(tmp_path / "res"), "--device", "cpu"],
+         str(tmp_path / "res"), "--device", "cpu", "--dtype", "float32"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
         env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
     )
@@ -161,17 +288,19 @@ def test_auto_above_150k_rows_not_ported():
 
 
 @pytest.mark.parametrize("cfg_kw,krylov_kw,slice_no", [
-    ({}, dict(preconditioner="block_jacobi", spmv="plane"), 9),
+    ({}, dict(preconditioner="block_jacobi", matvec_dtype="bfloat16"), 3),
     ({}, dict(preconditioner="ilu0", spmv="plane"), 11),
     ({}, dict(preconditioner="none", spmv="plane"), 11),
-    ({}, dict(preconditioner="two_level", spmv="auto"), 9),
+    ({}, dict(preconditioner="two_level", spmv="auto", cgs2="pallas_comp"),
+     14),
     ({}, dict(_PLANE, method="ca_gmres"), 12),
     ({}, dict(_PLANE, method="cg"), 11),
     ({}, dict(_PLANE, cgs2="pallas"), 14),
     ({}, dict(_PLANE, deflation_k=8), 13),
     ({}, dict(_PLANE, coarse_basis="linear"), 10),
     ({}, dict(_PLANE, coarse_smooth_omega=0.5), 10),
-    ({}, dict(_PLANE, coarse_agg=4, coarse_dense_max=64), 10),
+    ({}, dict(preconditioner="two_level", spmv="auto",
+              coarse_smooth_omega=0.5), 10),
     ({}, dict(_PLANE, matvec_dtype="bfloat16"), 3),
     (dict(jacobian="reference"), _PLANE, 5),
     (dict(residual="elementwise"), _PLANE, 2),
@@ -180,6 +309,27 @@ def test_options_outside_the_slice_raise(cfg_kw, krylov_kw, slice_no):
     cfg = NSConfig(krylov=SolverConfig(**krylov_kw), **cfg_kw)
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         resolve_supported(cfg, 1000)
+
+
+@pytest.mark.parametrize("krylov_kw,kind", [
+    (dict(preconditioner="block_jacobi", spmv="plane"), "bj"),
+    (dict(preconditioner="two_level", spmv="auto"), "tl"),
+    (dict(_PLANE, coarse_agg=4, coarse_dense_max=64), "tlp"),
+])
+def test_options_now_in_the_slice_run(krylov_kw, kind):
+    """Options the scalar-DIA slice brought in: each resolves and takes a
+    converged CPU Stokes solve on channel(6,3,3) (nv = 112, so the last
+    case has nc = 112 > 64 and takes the multilevel coarse level)."""
+    kr = SolverConfig(rtol=1e-10, atol=1e-12, **krylov_kw)
+    cfg = NSConfig(dtype="float64", krylov=kr, stokes_krylov=kr)
+    s = NavierStokesSolver(channel_mesh(6, 3, 3, obstacle=True), cfg,
+                           device=CPU)
+    assert s.prep_kind == kind
+    u = s.stokes_init()
+    assert s.stokes_result.converged and bool(torch.isfinite(u).all())
+    if "coarse_dense_max" in krylov_kw:
+        assert isinstance(s._prepare_operator_dia(s._stokes_dia()).coarse,
+                          MultilevelCoarse)
 
 
 def test_stokes_krylov_only_sets_the_solve():
@@ -199,11 +349,46 @@ def test_stokes_krylov_only_sets_the_solve():
     (["--nx", "2", "--checkpoint", "ck.npz"], 7),
     (["--nx", "2", "--resume", "ck.npz"], 7),
     (["--nx", "2", "--devices", "2"], 15),
-    (["--nx", "2", "--dtype", "float64"], 9),
+    (["--nx", "2", "--cgs2", "pallas"], 14),
 ])
 def test_cli_flags_outside_the_slice_raise(argv, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         run.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--spmv", "pallas"],
+                                   ["--preconditioner", "block_jacobi"]])
+def test_cli_cpu_default_is_float64_block_jacobi(extra):
+    """As the JAX CLI on a CPU backend: --device cpu without --dtype runs
+    float64 with SolverConfig() (block-Jacobi + Neumann 2); every scalar
+    SpMV goes through K2's plain version."""
+    tdia.reset_counters()
+    out = run.main(["--nx", "4", "--ny", "2", "--nz", "2", "--steps", "2",
+                    "--device", "cpu", *extra])
+    s = out.solver
+    assert s.cfg.dtype == "float64" and out.u.dtype == torch.float64
+    assert s.prep_kind == "bj" and s.cfg.krylov.neumann_order == 2
+    assert s.stokes_result.converged
+    assert all(st.converged for _, st, _ in s.history)
+    assert tdia.plain_calls > 0 and tdia.kernel_launches == 0
+
+
+def test_cli_krylov_flags_reach_both_solvers():
+    out = run.main(["--nx", "4", "--ny", "2", "--nz", "2", "--steps", "0",
+                    "--device", "cpu", "--preconditioner", "two_level",
+                    "--spmv", "xla", "--coarse-agg", "2", "--coarse-cheby",
+                    "2", "--coarse-cheby-fraction", "0.25", "--restart",
+                    "20", "--neumann-order", "1", "--coarse-ml-smooth", "2",
+                    "--coarse-ml-cycles", "3", "--coarse-ml-damp", "0.5"])
+    want = dict(preconditioner="two_level", spmv="xla", coarse_agg=2,
+                coarse_cheby=2, coarse_cheby_fraction=0.25, restart=20,
+                neumann_order=1, coarse_ml_smooth=2, coarse_ml_cycles=3,
+                coarse_ml_damp=0.5)
+    cfg = out.solver.cfg
+    for sc in (cfg.krylov, cfg.stokes_krylov):
+        assert {k: getattr(sc, k) for k in want} == want
+    assert out.solver.prep_kind == "tl"
+    assert out.solver.stokes_result.converged
 
 
 def test_import_leaves_jax_out():

@@ -1,5 +1,7 @@
-"""The port's solver pieces (GMRES, Arnoldi, the dense two-level coarse
-space) against the JAX package on identical numpy-seeded inputs, f64."""
+"""The port's solver pieces (GMRES, Arnoldi, the two-level coarse space:
+restriction and prolongation on both layouts, the dense inverse and the
+sparse multilevel A_c) against the JAX package on identical numpy-seeded
+inputs, f64."""
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ from navierstokes_tpu.mesh import box as jbox
 from navierstokes_tpu.solvers import coarse as jco
 from navierstokes_tpu.solvers.deflation import arnoldi as j_arnoldi
 from navierstokes_tpu.solvers.gmres import gmres as j_gmres
+from navierstokes_tpu.sparse import dia as jdia
 from navierstokes_tpu_torch.ops.plane_dia import plane_nbp
 from navierstokes_tpu_torch.solvers import coarse as tco
 from navierstokes_tpu_torch.solvers.deflation import arnoldi
@@ -128,6 +131,53 @@ def test_restrict_prolong_match_jax(nb, agg):
     if cs.nb_pad > 128:       # a layout rounded to the kernel block only
         with pytest.raises(ValueError, match="padding"):
             tco.restrict_planes(cs, torch.zeros(4 * 128), 128)
+
+
+@pytest.mark.parametrize("nb,agg", [(100, 48), (75, 8), (29, 4)])
+def test_interleaved_restrict_prolong_match_jax(nb, agg):
+    """The scalar-layout R and P (reshape-sums and broadcasts in the port,
+    0/1 mix-matrix products in the JAX package) at rel 1e-13."""
+    cs_j = jco.build_aggregates(nb, agg)
+    cs = tco.build_aggregates(nb, agg)
+    rng = np.random.default_rng(nb + agg)
+    r = rng.standard_normal(4 * nb)
+    rc = tco.restrict(cs, torch.as_tensor(r)).numpy()
+    rc_j = np.asarray(jco.restrict(cs_j, jnp.asarray(r)))
+    assert rc.shape == (cs.nc,)
+    np.testing.assert_allclose(rc, rc_j, rtol=1e-13, atol=1e-13)
+    zc = rng.standard_normal(cs.nc)
+    z = tco.prolong(cs, torch.as_tensor(zc)).numpy()
+    np.testing.assert_allclose(
+        z, np.asarray(jco.prolong(cs_j, jnp.asarray(zc))), rtol=1e-13,
+        atol=0)
+    # P = R^T: <R r, zc> == <r, P zc>
+    assert abs(rc @ zc - r @ z) <= 1e-12 * np.abs(r).sum() * np.abs(zc).max()
+
+
+@pytest.mark.parametrize("agg", [4, 8])
+def test_coarse_operator_dia_matches_jax(agg):
+    """coarse_dia_offsets and the sparse Galerkin A_c of the multilevel
+    path == JAX at rel 1e-13, with random nonzero fine data also where
+    i + d leaves the matrix, and == the dense A_c on the live entries."""
+    jd = jas.build_discretization(jbox.channel_mesh(6, 3, 3, obstacle=True),
+                                  dtype=jnp.float64)
+    offs = jd.dia_pattern.offsets
+    rng = np.random.default_rng(agg)
+    data = rng.standard_normal((len(offs), jd.ndof))
+    c_off = tco.coarse_dia_offsets(offs, agg)
+    assert c_off == jco.coarse_dia_offsets(offs, agg)
+    cs_j = jco.build_aggregates(jd.nv, agg)
+    cs = tco.build_aggregates(jd.nv, agg)
+    ac_j = np.asarray(jco.coarse_operator_dia(cs_j, offs, jnp.asarray(data),
+                                              c_off, shift=1e-6))
+    ac = tco.coarse_operator_dia(cs, offs, torch.as_tensor(data), c_off,
+                                 shift=1e-6).numpy()
+    assert ac.shape == (len(c_off), cs.nc)
+    np.testing.assert_allclose(ac, ac_j, rtol=1e-13, atol=1e-13)
+    dense = tco.coarse_dense_matrix(cs, offs, torch.as_tensor(data),
+                                    shift=1e-6).numpy()
+    from_dia = jdia.ScalarDIA(c_off, jnp.asarray(ac), 0).to_dense()
+    np.testing.assert_allclose(from_dia, dense, rtol=1e-13, atol=1e-12)
 
 
 @pytest.mark.parametrize("agg", [8, 48])
