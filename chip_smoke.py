@@ -4,8 +4,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device: require CUDA, print the card and its power limit, TF32 off;
-  2. build: compile kernels K1 (`navierstokes_tpu_torch/csrc/plane_dia.cu`)
-     and K2 (`csrc/dia.cu`) with nvcc for sm_90a, in parallel;
+  2. build: compile kernels K1 (`navierstokes_tpu_torch/csrc/plane_dia.cu`),
+     K2 (`csrc/dia.cu`), K3 (`csrc/cgs2.cu`) and K4 (`csrc/mpk.cu`) with
+     nvcc for sm_90a, in parallel;
   3. K1 against its plain PyTorch version on the matrix-6 plane operator
      (4x4, 3x3 and 1x1 forms, float32 and float64);
   4. K2 against its plain version on the matrix-6 scalar-DIA operators: A
@@ -13,19 +14,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      float64.  Phases 3 and 4 time each with CUDA events, with and without
      an L2 flush, beside the plain version, cuSPARSE's CSR SpMV on the same
      matrix (torch.sparse, the yardstick) and the HBM bound;
-  5. plane path: `run.main` at matrix 6 in float32 (Stokes + 5 steps, the
-     'tlp' flagship), K1 launch counter reset before and read after, with
-     the physics checks of the repo (BC values exact, finite state,
-     downstream flow, .dat header);
-  6. scalar two-level path: `run.main --spmv pallas` at matrix 6 in float32
+  5. K3 against its plain version at the matrix-6 Krylov shapes (V of
+     31 x 117,760 in float32, the plane layout, and 31 x 117,500 in
+     float64; k = 0, 15, 29; plain and compensated sums), rows above k
+     poisoned with NaN; timed beside the four cuBLAS GEMVs of the
+     cgs2='xla' path, the HBM bound (one read of V[:k+1], w in, w2 and h
+     out) and the HBM traffic of K3's three sweeps;
+  6. K4 (z = A^p x, p = 2, 3, 4, float32 and float64) on the matrix-6
+     operator A against its plain version and p chained K2 launches,
+     timed beside those, p chained cuSPARSE CSR SpMVs and the HBM bound;
+  7. plane path: `run.main` at matrix 6 in float32 (Stokes + 5 steps, the
+     'tlp' flagship), the kernel launch counters reset before and read
+     after, with the physics checks of the repo (BC values exact, finite
+     state, downstream flow, .dat header);
+  8. the same with `--cgs2 pallas` (K3 in every GMRES iteration): GMRES per
+     step within 0.8x-1.25x of phase 7's, K3 and K1 counted;
+  9. scalar two-level path: `run.main --spmv pallas` at matrix 6 in float32
      (the 'tl' prep), K2 counted; GMRES per step within 0.8x-1.25x of the
      plane path's, the same physics checks;
-  7. the float64 CLI default (block-Jacobi + Neumann 2, the 'bj' prep) at
+ 10. `--spmv pallas --cgs2 pallas_comp` ('tl', K3 with compensated sums),
+     Stokes + 2 steps, K3 and K2 counted;
+ 11. the float64 CLI default (block-Jacobi + Neumann 2, the 'bj' prep) at
      matrix 6, Stokes + 2 steps, K2 counted, the same physics checks;
-  8. small-input reference: the golden 5-step trajectory of
+ 12. small-input reference: the golden 5-step trajectory of
      `tests/data_golden_trajectory.py` (reference-derived C) in float64, in
-     flagship mode and on the block-Jacobi path, each run twice: the
-     second run must repeat the first bit for bit;
+     flagship mode with cgs2='xla' and with cgs2='pallas' (K3 in float64)
+     and on the block-Jacobi path, each run twice: the second run must
+     repeat the first bit for bit;
+ 13. the benchmark entry point `bench.spmv_bench.main` at matrix 6 for
+     spmv, spm2v, spm3v and spm4v: its lines, the fused K4 variant within
+     rel 1e-5 of the reference, K4 counted;
 then the kernel summary line and, last, the device line.
 """
 
@@ -46,6 +64,7 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch import run
+from navierstokes_tpu_torch.bench import spmv_bench
 from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
 from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
@@ -55,8 +74,10 @@ from navierstokes_tpu_torch.fem.assembly import (
 from navierstokes_tpu_torch.io.dat import HEADER
 from navierstokes_tpu_torch.mesh.box import channel_mesh, scaling_series_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
+from navierstokes_tpu_torch.ops import cgs2 as k3_ops
 from navierstokes_tpu_torch.ops import cuda_lib
 from navierstokes_tpu_torch.ops import dia as dia_ops
+from navierstokes_tpu_torch.ops import mpk, mpk_fused
 from navierstokes_tpu_torch.ops import plane_dia as pd
 from navierstokes_tpu_torch.ops.block import block4_inverse
 from navierstokes_tpu_torch.solvers.coarse import build_aggregates
@@ -81,7 +102,12 @@ KERNELS = {
                    "navierstokes_tpu/ops/plane_dia.py:113"),
     "dia_spmv": ("dia", "navierstokes_tpu_torch/csrc/dia.cu",
                  "navierstokes_tpu/ops/pallas_dia.py:35"),
+    "cgs2_project": ("cgs2", "navierstokes_tpu_torch/csrc/cgs2.cu",
+                     "navierstokes_tpu/ops/cgs2_pallas.py:132"),
+    "spmpv_dia": ("mpk", "navierstokes_tpu_torch/csrc/mpk.cu",
+                  "navierstokes_tpu/ops/mpk_pallas.py:69"),
 }
+BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 def phase(name: str) -> None:
@@ -192,9 +218,12 @@ def build_phase():
     phase("build")
     t0 = time.perf_counter()
     libs = [lib for lib, _, _ in KERNELS.values()]
+    if sorted(libs) != sorted(cuda_lib.SOURCES):
+        raise AssertionError(f"KERNELS builds {libs}, the sources are "
+                             f"{cuda_lib.SOURCES}")
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
         built = list(ex.map(cuda_lib.load, libs))
-    print(f"K1 and K2 built in {time.perf_counter() - t0:.3f} s (parallel)")
+    print(f"K1-K4 built in {time.perf_counter() - t0:.3f} s (parallel)")
     for lib, (_, info) in zip(libs, built):
         print(f"{lib}: {info.seconds:.3f} s (cached={info.cached}) -> "
               f"{os.path.relpath(info.path, ROOT)}")
@@ -347,14 +376,156 @@ def k2_phase(dev, mesh, pat, data64, flush):
     return summary
 
 
+def k3_phase(dev, flush):
+    phase("K3 against its plain version (matrix-6 Krylov shapes)")
+    rng = np.random.default_rng(2026)
+    summary = {}
+    for dtype, n in ((torch.float32, 117_760), (torch.float64, 117_500)):
+        bar = BARS[dtype]
+        # orthonormal rows 0..29, as GMRES keeps them
+        q = torch.linalg.qr(torch.as_tensor(rng.standard_normal((n, 30))))[0]
+        V = torch.zeros((31, n), dtype=dtype, device=dev)
+        V[:30] = q.T.to(dtype).to(dev)
+        w = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        for k in (0, 15, 29):
+            poisoned = V.clone()
+            poisoned[k + 1:] = float("nan")
+            for comp in (False, True):
+                w2, h = k3_ops.cgs2_project(poisoned, w, k, compensated=comp)
+                torch.cuda.synchronize()
+                w2_r, h_r = k3_ops.cgs2_project_plain(V, w, k,
+                                                      compensated=comp)
+                rel = max(float(torch.linalg.norm(a - b)
+                                / torch.linalg.norm(b))
+                          for a, b in ((w2, w2_r), (h, h_r)))
+                abs_err = max(float((w2 - w2_r).abs().max()),
+                              float((h - h_r).abs().max()))
+                again = k3_ops.cgs2_project(poisoned, w, k, compensated=comp)
+                if not (rel <= bar and bool((h[k + 1:] == 0).all())
+                        and torch.equal(again[0], w2)
+                        and torch.equal(again[1], h)):
+                    raise AssertionError(
+                        f"K3 {dtype} k={k} comp={comp}: rel {rel:.3e} (bar "
+                        f"{bar}), h beyond k {h[k + 1:].abs().max()}, "
+                        "repeat bit for bit: "
+                        f"{torch.equal(again[0], w2)}")
+
+                def kern():
+                    k3_ops.cgs2_project(V, w, k, compensated=comp)
+
+                def plain():
+                    k3_ops.cgs2_project_plain(V, w, k, compensated=comp)
+
+                def library():
+                    vk = V[:k + 1]
+                    h1 = vk @ w
+                    w1 = w - vk.T @ h1
+                    h2 = vk @ w1
+                    return w1 - vk.T @ h2
+
+                t = time_all(kern, plain, library, flush)
+                # the function's bound: V[:k+1] read once, w in, w2 and h
+                # out; K3's three sweeps also re-read V[:k+1] twice and
+                # move w1 three times
+                s = V.element_size()
+                t["bound"], t["bound_by"] = bound_ms(
+                    ((k + 3) * n + V.shape[0]) * s, 8 * (k + 1) * n, dtype)
+                sweeps_ms = 1e3 * (3 * (k + 1) + 5) * n * s / HBM_BYTES_PER_S
+                print(f"K3 {str(dtype)[6:]} k={k} "
+                      f"{'compensated' if comp else 'plain sums'} (tile "
+                      f"{k3_ops.tile_columns(k, V.element_size())}): rel "
+                      f"{rel:.3e} max_abs {abs_err:.3e} | kernel "
+                      f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms "
+                      f"L2-warm | plain {t['p_flush']:.4f} / {t['p']:.4f} ms "
+                      f"| four cuBLAS GEMVs {t['lib_flush']:.4f} / "
+                      f"{t['lib']:.4f} ms | bound {t['bound']:.4f} ms "
+                      f"({t['bound_by']}) | three-sweep traffic "
+                      f"{sweeps_ms:.4f} ms", flush=True)
+                summary[(dtype, k, comp)] = (abs_err, t)
+    print("K3: h beyond k exactly 0 with NaN rows above k; every call "
+          "repeats bit for bit")
+    return summary
+
+
+def k4_phase(dev, pat, data64, flush):
+    phase("K4 against its plain version and chained K2 (matrix-6 A)")
+    offsets = pat.offsets
+    n = data64.shape[1]
+    in_range = sum(n - abs(d) for d in offsets)
+    rng = np.random.default_rng(2027)
+    summary = {}
+    for dtype in (torch.float32, torch.float64):
+        bar = BARS[dtype]
+        data = data64.to(dtype).contiguous()
+        csr = dia_csr(offsets, data)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        for p in mpk_fused.POWERS:
+            tile = mpk_fused.device_tile(n, offsets, power=p, dtype=dtype,
+                                         device=dev)
+            z = mpk_fused.spmpv_dia(offsets, data, x, power=p)
+            torch.cuda.synchronize()
+            ref = mpk_fused.spmpv_dia_plain(offsets, data, x, power=p)
+            chained = mpk.matrix_power(offsets, data, x, p)
+            rel = float(torch.linalg.norm(z - ref) / torch.linalg.norm(ref))
+            rel_k2 = float(torch.linalg.norm(z - chained)
+                           / torch.linalg.norm(chained))
+            abs_err = float((z - ref).abs().max())
+            if not (rel <= bar and rel_k2 <= bar):
+                raise AssertionError(f"K4 {dtype} p={p}: rel {rel:.3e} to "
+                                     f"plain, {rel_k2:.3e} to chained K2 "
+                                     f"(bar {bar})")
+
+            def kern():
+                mpk_fused.spmpv_dia(offsets, data, x, power=p)
+
+            def plain():
+                mpk_fused.spmpv_dia_plain(offsets, data, x, power=p)
+
+            def k2_chain():
+                mpk.matrix_power(offsets, data, x, p)
+
+            def library():
+                y = x
+                for _ in range(p):
+                    y = csr @ y
+
+            t = time_all(kern, plain, library, flush)
+            t["k2"] = event_ms(k2_chain, 25)
+            t["k2_flush"] = event_ms(k2_chain, 25, flush=flush)
+            t["bound"], t["bound_by"] = bound_ms(
+                data.element_size() * (data.numel() + 2 * n),
+                2 * p * in_range, dtype)
+            passes = mpk_fused.overlap_ratio(n, offsets, power=p, tile=tile)
+            print(f"K4 {str(dtype)[6:]} p={p} (tile {tile}, {passes:.2f} "
+                  f"passes over A vs {p} chained): rel {rel:.3e} to plain, "
+                  f"{rel_k2:.3e} to chained K2, max_abs {abs_err:.3e} | "
+                  f"kernel {t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms "
+                  f"L2-warm | plain {t['p_flush']:.4f} / {t['p']:.4f} ms | "
+                  f"{p} chained K2 {t['k2_flush']:.4f} / {t['k2']:.4f} ms | "
+                  f"{p} chained cuSPARSE CSR {t['lib_flush']:.4f} / "
+                  f"{t['lib']:.4f} ms | bound {t['bound']:.4f} ms "
+                  f"({t['bound_by']})", flush=True)
+            summary[(dtype, p)] = (abs_err, t)
+    return summary
+
+
 def reset_counters():
     pd.reset_counters()
     dia_ops.reset_counters()
+    k3_ops.reset_counters()
+    mpk_fused.reset_counters()
 
 
 def counters() -> dict:
     return {"K1": pd.kernel_launches, "K1 plain": pd.plain_calls,
-            "K2": dia_ops.kernel_launches, "K2 plain": dia_ops.plain_calls}
+            "K2": dia_ops.kernel_launches, "K2 plain": dia_ops.plain_calls,
+            "K3": k3_ops.kernel_launches, "K3 plain": k3_ops.plain_calls,
+            "K4": mpk_fused.kernel_launches,
+            "K4 plain": mpk_fused.plain_calls}
+
+
+def no_plain_calls(counts: dict) -> bool:
+    return not any(v for key, v in counts.items() if key.endswith("plain"))
 
 
 def drive(label: str, argv: list, n_steps: int, max_newton=3,
@@ -440,9 +611,31 @@ def plane_path_phase():
     if not 0.5 * JAX_LIN_PER_STEP <= lin <= 2 * JAX_LIN_PER_STEP:
         raise AssertionError(f"mean GMRES/step {lin} outside 0.5x-2x of "
                              f"{JAX_LIN_PER_STEP}")
-    if counts["K1"] <= 0 or counts["K1 plain"] or counts["K2 plain"]:
+    if counts["K1"] <= 0 or counts["K3"] or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
     return counts["K1"], lin
+
+
+def plane_cgs2_phase(plane_lin: float):
+    out, counts = drive("plane path with the fused CGS2: run.main "
+                        "--matrix-id 6 --cgs2 pallas, float32, Stokes + 5 "
+                        "steps ('tlp', K3)",
+                        ["--matrix-id", "6", "--re", "300", "--dt", "1e-3",
+                         "--delta", "0.05", "--dtype", "float32", "--cgs2",
+                         "pallas"], 5)
+    lin = mean_lin(out)
+    print(f"mean GMRES iterations per step {lin:.1f} (cgs2='xla' plane path "
+          f"{plane_lin:.1f})")
+    if out.solver.prep_kind != "tlp" or out.solver.cfg.krylov.cgs2 != \
+            "pallas":
+        raise AssertionError(f"prep {out.solver.prep_kind}, "
+                             f"{out.solver.cfg.krylov}")
+    if not 0.8 * plane_lin <= lin <= 1.25 * plane_lin:
+        raise AssertionError(f"mean GMRES/step {lin} outside 0.8x-1.25x of "
+                             f"the cgs2='xla' plane path's {plane_lin}")
+    if counts["K3"] <= 0 or counts["K1"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"kernel counts {counts}")
+    return counts["K3"]
 
 
 def scalar_path_phase(plane_lin: float):
@@ -461,10 +654,26 @@ def scalar_path_phase(plane_lin: float):
     if not 0.8 * plane_lin <= lin <= 1.25 * plane_lin:
         raise AssertionError(f"mean GMRES/step {lin} outside 0.8x-1.25x of "
                              f"the plane path's {plane_lin}")
-    if counts["K2"] <= 0 or counts["K1"] or counts["K1 plain"] \
-            or counts["K2 plain"]:
+    if counts["K2"] <= 0 or counts["K1"] or counts["K3"] \
+            or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
     return counts["K2"]
+
+
+def scalar_comp_phase():
+    out, counts = drive("scalar two-level path with compensated CGS2: "
+                        "run.main --matrix-id 6 --spmv pallas --cgs2 "
+                        "pallas_comp, float32, Stokes + 2 steps ('tl', K3)",
+                        ["--matrix-id", "6", "--spmv", "pallas", "--cgs2",
+                         "pallas_comp", "--dtype", "float32"], 2)
+    if out.solver.prep_kind != "tl" or out.solver.cfg.krylov.cgs2 != \
+            "pallas_comp":
+        raise AssertionError(f"prep {out.solver.prep_kind}, "
+                             f"{out.solver.cfg.krylov}")
+    if counts["K3"] <= 0 or counts["K2"] <= 0 or counts["K1"] \
+            or not no_plain_calls(counts):
+        raise AssertionError(f"kernel counts {counts}")
+    return counts["K3"]
 
 
 def f64_default_phase():
@@ -480,7 +689,8 @@ def f64_default_phase():
     if out.solver.prep_kind != "bj" or kr.neumann_order != 2 \
             or out.u.dtype != torch.float64:
         raise AssertionError(f"prep {out.solver.prep_kind}, {kr}")
-    if counts["K2"] <= 0 or counts["K1"] or counts["K2 plain"]:
+    if counts["K2"] <= 0 or counts["K1"] or counts["K3"] \
+            or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
     return counts["K2"]
 
@@ -508,15 +718,23 @@ def golden_phase(dev):
             states.append(u)
         return solver.prep_kind, torch.stack(states).cpu().numpy()
 
+    flagship = dict(preconditioner="auto", spmv="plane")
     for mode, kw, bar in (
-            ("flagship mode", dict(preconditioner="auto", spmv="plane"),
-             1e-7),
+            ("flagship mode", flagship, 1e-7),
+            ("flagship mode, cgs2='pallas' (K3)", dict(flagship,
+                                                       cgs2="pallas"), 1e-7),
             ("block-Jacobi path", {}, GOLDEN_BJ_BAR)):
+        reset_counters()
         kind, states = trajectory(kw)
+        k3_launches = k3_ops.kernel_launches
+        if (k3_launches > 0) != (kw.get("cgs2") == "pallas") \
+                or not no_plain_calls(counters()):
+            raise AssertionError(f"golden {mode}: counts {counters()}")
         errs = [np.linalg.norm(u - g) / np.linalg.norm(g)
                 for u, g in zip(states, golden)]
         print(f"golden rel errors, {mode} ({kind}; Stokes, steps 1-5): "
-              + " ".join(f"{e:.3e}" for e in errs) + f" (bar {bar:.3e})")
+              + " ".join(f"{e:.3e}" for e in errs) + f" (bar {bar:.3e}); "
+              f"K3 launches {k3_launches}")
         if max(errs) > bar:
             raise AssertionError(f"golden trajectory ({mode}) off by "
                                  f"{max(errs):.3e}")
@@ -525,6 +743,22 @@ def golden_phase(dev):
             raise AssertionError(f"golden trajectory ({mode}) differs "
                                  "between two runs")
     print("golden trajectories repeat bit for bit in a second run")
+
+
+def bench_phase():
+    argv = ["--matrices", "6", "--kernel", "spmv,spm2v,spm3v,spm4v"]
+    phase("benchmark entry point: bench.spmv_bench.main(" + " ".join(argv)
+          + ")")
+    reset_counters()
+    rows = spmv_bench.main(argv)
+    counts = counters()
+    print(f"kernel counts on this path: {counts}")
+    fused = [r for r in rows if "FUSED" in r["name"]]
+    if len(fused) != 3 or any(not r["rel_err"] <= 1e-5 for r in fused):
+        raise AssertionError(f"fused K4 variants: {fused}")
+    if counts["K4"] <= 0 or counts["K2"] <= 0 or counts["K1"] <= 0:
+        raise AssertionError(f"kernel counts {counts}")
+    return counts["K4"]
 
 
 def kernel_entry(name: str, launches: int, abs_err: float, t: dict) -> dict:
@@ -546,17 +780,26 @@ def main() -> int:
                         device=dev)
     k1 = k1_phase(dev, mesh, pat, data64, flush)
     k2 = k2_phase(dev, mesh, pat, data64, flush)
+    k3 = k3_phase(dev, flush)
+    k4 = k4_phase(dev, pat, data64, flush)
     del flush, data64
     k1_launches, plane_lin = plane_path_phase()
+    k3_launches = plane_cgs2_phase(plane_lin)
     k2_launches = scalar_path_phase(plane_lin)
+    k3_comp_launches = scalar_comp_phase()
     f64_launches = f64_default_phase()
     golden_phase(dev)
+    k4_launches = bench_phase()
 
     print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
-          f"default {f64_launches}")
+          f"default {f64_launches}; K3 launches: plane path {k3_launches}, "
+          f"'tl' with pallas_comp {k3_comp_launches}")
     print(json.dumps({"kernels": [
         kernel_entry("plane_spmv", k1_launches, *k1[("4x4", torch.float32)]),
         kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)]),
+        kernel_entry("cgs2_project", k3_launches,
+                     *k3[(torch.float32, 15, False)]),
+        kernel_entry("spmpv_dia", k4_launches, *k4[(torch.float32, 2)]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,7 +9,9 @@ and the operator-form residual: the two-level preconditioner on the
 component-plane layout ('tlp', spmv='plane') and on the scalar-DIA layout
 ('tl', spmv in auto/xla/pallas), block-Jacobi with its Neumann boost ('bj',
 the float64 default), and for both two-level layouts the dense or the
-multilevel coarse level.  `check_supported` raises `NotImplementedError`
+multilevel coarse level; GMRES orthogonalizes with four GEMVs
+(cgs2='xla') or the fused projection K3 ('pallas', 'pallas_comp' with
+compensated sums).  `check_supported` raises `NotImplementedError`
 for every option outside them, naming the ROADMAP slice that ports it, so
 that no option silently runs something else.  The `'auto'` resolution
 itself is carried over whole, so the tier choice is the JAX package's.
@@ -168,6 +170,7 @@ def resolve_coarse_defaults(cfg: NSConfig, nv: int,
 
 
 SPMV_CHOICES = ("auto", "xla", "pallas", "plane")
+CGS2_CHOICES = ("xla", "pallas", "pallas_comp")
 
 
 def second_level_agg(nc: int, coarse_dense_max: int) -> int:
@@ -190,8 +193,9 @@ def _check_method(sc: SolverConfig) -> None:
         _not_ported("method='cg'", 11, "other preconditioners and solvers")
     if sc.method != "gmres":
         raise ValueError(f"unknown method {sc.method!r}")
-    if sc.cgs2 != "xla":
-        _not_ported(f"cgs2={sc.cgs2!r}", 14, "the cgs2='pallas' option")
+    if sc.cgs2 not in CGS2_CHOICES:
+        raise ValueError(f"unknown cgs2 backend {sc.cgs2!r}; expected "
+                         "'xla', 'pallas' or 'pallas_comp'")
 
 
 def _check_krylov(sc: SolverConfig, nv: int) -> None:

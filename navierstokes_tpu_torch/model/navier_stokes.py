@@ -21,7 +21,9 @@ The ported paths are the single-device paths of the JAX package's
     S = D^{-1} A, with the Neumann boost (the float64 default).
 
 The scalar-DIA applies (A, S, the 7-diagonal D^{-1}, the multilevel
-coarse level, the scalar residual) run kernel K2 (`ops/dia.py`).  Both
+coarse level, the scalar residual) run kernel K2 (`ops/dia.py`).  With
+`cgs2` 'pallas' or 'pallas_comp', every GMRES solve (Stokes and Newton, on
+each kind) orthogonalizes through kernel K3 (`ops/cgs2.py`).  Both
 two-level kinds take a dense coarse inverse or, above `coarse_dense_max`,
 the multilevel coarse level.  Newton and GMRES are Python loops over device
 tensors; the host reads only the norms and Hessenberg columns it branches
@@ -490,7 +492,9 @@ class NavierStokesSolver:
         matvec, b_prep, _ = self._prep_operators(prep)
         return gmres(matvec, b_prep(rhs), restart=solver_cfg.restart,
                      rtol=solver_cfg.rtol, atol=solver_cfg.atol,
-                     maxiter=solver_cfg.maxiter)
+                     maxiter=solver_cfg.maxiter,
+                     cgs2_kernel=solver_cfg.cgs2 != "xla",
+                     cgs2_compensated=solver_cfg.cgs2 == "pallas_comp")
 
     # -- Stokes initialization -----------------------------------------------
 

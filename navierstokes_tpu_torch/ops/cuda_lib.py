@@ -21,6 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+# Every kernel source, csrc/<name>.cu: K1 the plane SpMV, K2 the scalar-DIA
+# SpMV, K3 the fused CGS2 projection, K4 the fused A^p x.
+SOURCES = ("plane_dia", "dia", "cgs2", "mpk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

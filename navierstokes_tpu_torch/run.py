@@ -4,6 +4,7 @@
     python -m navierstokes_tpu_torch.run --matrix-id 6 --re 300 --dt 1e-3 \
         --t-final 1.0 --delta 0.05 --save --save-dir res
     python -m navierstokes_tpu_torch.run --matrix-id 6 --spmv pallas --steps 5
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --cgs2 pallas --steps 5
     python -m navierstokes_tpu_torch.run --nx 4 --ny 2 --nz 2 --steps 2 \
         --device cpu
 
@@ -119,7 +120,9 @@ def main(argv=None) -> Optional[RunOutput]:
                    help="GMRES restart length")
     p.add_argument("--cgs2", default=None,
                    choices=["xla", "pallas", "pallas_comp"],
-                   help="GMRES orthogonalization (pallas: not ported)")
+                   help="GMRES orthogonalization: xla = four GEMVs per "
+                        "step; pallas = the fused CGS2 projection, kernel "
+                        "K3; pallas_comp = K3 with compensated h sums")
     # Flags of the JAX CLI whose slices are not ported yet: they raise.
     p.add_argument("--msh", help="Gmsh 2.2 mesh file (not ported)")
     p.add_argument("--vtu", action="store_true", help="(not ported)")
@@ -197,7 +200,7 @@ def main(argv=None) -> Optional[RunOutput]:
     solver = NavierStokesSolver(mesh, cfg, device=device)
     kr = solver.cfg.krylov
     print(f"preconditioner={kr.preconditioner} spmv={kr.spmv} "
-          f"prep={solver.prep_kind}"
+          f"cgs2={kr.cgs2} prep={solver.prep_kind}"
           + (" (kernel-free: K2's plain version)" if kr.spmv == "xla"
              else ""))
     sync()

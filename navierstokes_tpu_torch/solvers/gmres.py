@@ -1,11 +1,15 @@
 """Restarted GMRES(m): the KSPGMRES equivalent, as a Python loop.
 
-Semantics of the JAX package's `solvers/gmres.py` on its `cgs2='xla'`
-path: left preconditioning, CGS2 (classical Gram–Schmidt, twice) against
-the live basis rows 0..k, Givens-rotation least squares, convergence when
+Semantics of the JAX package's `solvers/gmres.py`: left preconditioning,
+CGS2 (classical Gram–Schmidt, twice) against the live basis rows 0..k,
+Givens-rotation least squares, convergence when
 the preconditioned residual drops below max(rtol * ||r0||, atol) (PETSc
 `KSPConvergedDefault`), restart length m, a total-iteration cap, the
 relative breakdown guard and the stall exit.
+
+The projection is four torch GEMVs on the live rows (`cgs2='xla'`) or, with
+`cgs2_kernel=True` (`cgs2='pallas'|'pallas_comp'`), one call of the fused
+projection `ops/cgs2.cgs2_project` (kernel K3 on the card), for any n.
 
 The Krylov vectors stay on the device.  Each inner iteration fetches the
 new Hessenberg column (k+2 numbers) in one host sync; the rotations, the
@@ -20,6 +24,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from navierstokes_tpu_torch.ops.cgs2 import cgs2_project
 
 
 class GMRESResult(NamedTuple):
@@ -56,7 +62,11 @@ def gmres(
     rtol: float = 1e-10,
     atol: float = 1e-12,
     maxiter: int = 2000,
+    cgs2_kernel: bool = False,
+    cgs2_compensated: bool = False,
 ) -> GMRESResult:
+    """cgs2_kernel=True orthogonalizes through the fused projection (K3 on
+    the card), cgs2_compensated with its compensated h sums."""
     n = b.shape[0]
     dtype, device = b.dtype, b.device
     sc = scalar_type(dtype)
@@ -97,14 +107,19 @@ def gmres(
         k, done, brk = 0, bool(beta <= tol), False
         while k < m and not done:
             w = M(matvec(V[k]))
-            Vk = V[:k + 1]                       # the live rows 0..k
-            h1 = Vk @ w
-            w = w - Vk.T @ h1
-            h2 = Vk @ w
-            w = w - Vk.T @ h2
+            if cgs2_kernel:
+                w, hf = cgs2_project(V, w, k, compensated=cgs2_compensated)
+                h_t = hf[:k + 1]
+            else:
+                Vk = V[:k + 1]                   # the live rows 0..k
+                h1 = Vk @ w
+                w = w - Vk.T @ h1
+                h2 = Vk @ w
+                w = w - Vk.T @ h2
+                h_t = h1 + h2
             hk1_t = torch.linalg.norm(w)
             V[k + 1] = w / torch.where(hk1_t > 0, hk1_t, one)
-            col = torch.cat([h1 + h2, hk1_t[None]]).cpu().numpy()  # one sync
+            col = torch.cat([h_t, hk1_t[None]]).cpu().numpy()  # one sync
             h, hk1 = col[:k + 1], col[k + 1]
 
             # rotations 0..k-1 applied to the new column

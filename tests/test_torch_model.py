@@ -31,6 +31,7 @@ from navierstokes_tpu_torch.io.dat import HEADER, read_petsc_vec, write_petsc_ve
 from navierstokes_tpu_torch.mesh import channel_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.model.navier_stokes import MultilevelCoarse
+from navierstokes_tpu_torch.ops import cgs2 as tcgs2
 from navierstokes_tpu_torch.ops import dia as tdia
 
 from data_golden_trajectory import TRAJ
@@ -291,11 +292,8 @@ def test_auto_above_150k_rows_not_ported():
     ({}, dict(preconditioner="block_jacobi", matvec_dtype="bfloat16"), 3),
     ({}, dict(preconditioner="ilu0", spmv="plane"), 11),
     ({}, dict(preconditioner="none", spmv="plane"), 11),
-    ({}, dict(preconditioner="two_level", spmv="auto", cgs2="pallas_comp"),
-     14),
     ({}, dict(_PLANE, method="ca_gmres"), 12),
     ({}, dict(_PLANE, method="cg"), 11),
-    ({}, dict(_PLANE, cgs2="pallas"), 14),
     ({}, dict(_PLANE, deflation_k=8), 13),
     ({}, dict(_PLANE, coarse_basis="linear"), 10),
     ({}, dict(_PLANE, coarse_smooth_omega=0.5), 10),
@@ -315,18 +313,25 @@ def test_options_outside_the_slice_raise(cfg_kw, krylov_kw, slice_no):
     (dict(preconditioner="block_jacobi", spmv="plane"), "bj"),
     (dict(preconditioner="two_level", spmv="auto"), "tl"),
     (dict(_PLANE, coarse_agg=4, coarse_dense_max=64), "tlp"),
+    (dict(preconditioner="two_level", spmv="auto", cgs2="pallas_comp"),
+     "tl"),
+    (dict(_PLANE, cgs2="pallas"), "tlp"),
 ])
 def test_options_now_in_the_slice_run(krylov_kw, kind):
-    """Options the scalar-DIA slice brought in: each resolves and takes a
-    converged CPU Stokes solve on channel(6,3,3) (nv = 112, so the last
-    case has nc = 112 > 64 and takes the multilevel coarse level)."""
+    """Options the scalar-DIA slice and the fused-CGS2 slice brought in:
+    each resolves and takes a converged CPU Stokes solve on channel(6,3,3)
+    (nv = 112, so the third case has nc = 112 > 64 and takes the multilevel
+    coarse level; the cgs2 cases orthogonalize through K3's plain
+    version)."""
     kr = SolverConfig(rtol=1e-10, atol=1e-12, **krylov_kw)
     cfg = NSConfig(dtype="float64", krylov=kr, stokes_krylov=kr)
     s = NavierStokesSolver(channel_mesh(6, 3, 3, obstacle=True), cfg,
                            device=CPU)
     assert s.prep_kind == kind
+    tcgs2.reset_counters()
     u = s.stokes_init()
     assert s.stokes_result.converged and bool(torch.isfinite(u).all())
+    assert (tcgs2.plain_calls > 0) == ("cgs2" in krylov_kw)
     if "coarse_dense_max" in krylov_kw:
         assert isinstance(s._prepare_operator_dia(s._stokes_dia()).coarse,
                           MultilevelCoarse)
@@ -349,11 +354,29 @@ def test_stokes_krylov_only_sets_the_solve():
     (["--nx", "2", "--checkpoint", "ck.npz"], 7),
     (["--nx", "2", "--resume", "ck.npz"], 7),
     (["--nx", "2", "--devices", "2"], 15),
-    (["--nx", "2", "--cgs2", "pallas"], 14),
 ])
 def test_cli_flags_outside_the_slice_raise(argv, slice_no):
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         run.main(argv + ["--device", "cpu"])
+
+
+def test_cli_cgs2_runs():
+    """`--cgs2` runs on every prep: here the f64 default ('bj') on
+    channel(4,2,2) with compensated sums, every GMRES iteration through
+    K3's plain version."""
+    tcgs2.reset_counters()
+    out = run.main(["--nx", "4", "--ny", "2", "--nz", "2", "--steps", "1",
+                    "--cgs2", "pallas_comp", "--device", "cpu"])
+    s = out.solver
+    assert s.cfg.krylov.cgs2 == s.cfg.stokes_krylov.cgs2 == "pallas_comp"
+    assert s.stokes_result.converged and s.history[0][1].converged
+    assert tcgs2.plain_calls > 0 and tcgs2.kernel_launches == 0
+
+
+def test_unknown_cgs2_raises():
+    cfg = NSConfig(krylov=SolverConfig(**_PLANE, cgs2="mgs"))
+    with pytest.raises(ValueError, match="cgs2"):
+        resolve_supported(cfg, 1000)
 
 
 @pytest.mark.parametrize("extra", [[], ["--spmv", "pallas"],
