@@ -7,13 +7,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compile kernels K1 (`navierstokes_tpu_torch/csrc/plane_dia.cu`),
      K2 (`csrc/dia.cu`), K3 (`csrc/cgs2.cu`) and K4 (`csrc/mpk.cu`) with
      nvcc for sm_90a, in parallel;
-  3. K1 against its plain PyTorch version on the matrix-6 plane operator
-     (4x4, 3x3 and 1x1 forms, float32 and float64);
-  4. K2 against its plain version on the matrix-6 scalar-DIA operators: A
-     (81 diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and
-     float64.  Phases 3 and 4 time each with CUDA events, with and without
-     an L2 flush, beside the plain version, cuSPARSE's CSR SpMV on the same
-     matrix (torch.sparse, the yardstick) and the HBM bound;
+  3. K1, both routes (tiled and row-per-thread), against its plain PyTorch
+     version on the matrix-6 plane operator (4x4, 3x3 and 1x1 forms,
+     float32 and float64), and on random data that is nonzero where i + D
+     leaves the matrix.  The routes are timed in turns (rows, tiled,
+     tiled, rows) with CUDA events, with and without an L2 flush, beside
+     the plain version, cuSPARSE's CSR SpMV on the same matrix
+     (torch.sparse, the yardstick) and the HBM bound, with the launch
+     floor (each route on one tile) and what a launch of each route costs
+     the host; then both routes at a quarter, 4x and 8x of matrix 6's
+     rows, where a block walks several tiles;
+  4. K2 against its plain version on the matrix-6 scalar-DIA operators:
+     A (81 diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and
+     float64, and on random data likewise, timed like K1.  Phases 3 and 4
+     require a second call to repeat the first bit for bit;
   5. K3 against its plain version at the matrix-6 Krylov shapes (V of
      31 x 117,760 in float32, the plane layout, and 31 x 117,500 in
      float64; k = 0, 15, 29; plain and compensated sums), rows above k
@@ -53,6 +60,7 @@ import concurrent.futures
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -114,19 +122,25 @@ def phase(name: str) -> None:
     print(f"--- {name}", flush=True)
 
 
-def event_ms(fn, reps: int, flush=None, sleep_cycles: int = 20_000_000):
+def event_ms(fn, reps: int, flush=None, clean: bool = False,
+             sleep_cycles: int = 20_000_000):
     """Median device time of fn() in ms over `reps` runs, from CUDA events.
 
     Before each run the stream sleeps, so the host enqueues the events and
     fn's launches while the device waits: the events bracket device work
     only, not Python launch overhead.  With `flush`, a buffer larger than
-    the 50 MB L2 is rewritten first, so fn reads from device memory."""
+    the 50 MB L2 is rewritten first, so fn reads from device memory; that
+    leaves the L2 full of modified lines, which fn's reads must first
+    write back.  With `clean` the buffer is then read once more, so the L2
+    holds unmodified lines and fn's reads are the only traffic."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush.zero_()
+            if clean:
+                flush.sum()
         torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -196,6 +210,82 @@ def time_all(kern, plain, library, flush) -> dict:
     return t
 
 
+def route_turns(run_route, flush, reps: int = 25) -> dict:
+    """Times of a kernel's two routes, 'rows' and 'tiled', taken in turns
+    (rows, tiled, tiled, rows) so that drift of the card falls on both
+    alike: L2-warm, flushed ("_flush"), and flushed with the L2 left clean
+    ("_clean").  A route's time is the mean of its two medians."""
+    t = {}
+    for key, fl, clean in (("", None, False), ("_flush", flush, False),
+                           ("_clean", flush, True)):
+        turns = {"rows": [], "tiled": []}
+        for route in ("rows", "tiled", "tiled", "rows"):
+            turns[route].append(event_ms(lambda: run_route(route), reps,
+                                         flush=fl, clean=clean))
+        for route, ms in turns.items():
+            t[route + key] = statistics.mean(ms)
+            t[route + key + "_turns"] = ms
+    return t
+
+
+def time_routes(run_route, chosen: str, plain, library, flush) -> dict:
+    """`time_all` for a kernel with two routes: "k" is the route the
+    wrapper chooses for this operator."""
+    t = time_all(None, plain, library, flush)
+    t.update(route_turns(run_route, flush))
+    for key in ("", "_flush", "_clean"):
+        t["k" + key] = t[chosen + key]
+    return t
+
+
+def host_us_per_launch(run_route, launches: int = 2000) -> dict:
+    """What a launch of each route costs the host, beside its device time:
+    microseconds per call of the wrapper over `launches` calls in a loop
+    with no sync, the routes in turns (rows, tiled, tiled, rows)."""
+    us = {"rows": [], "tiled": []}
+    for route in ("rows", "tiled", "tiled", "rows"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            run_route(route)
+        us[route].append((time.perf_counter() - t0) / launches * 1e6)
+    torch.cuda.synchronize()
+    return us
+
+
+def routes_line(t: dict) -> str:
+    """The two routes' times, each turn shown: flushed, flushed with a
+    clean L2, L2-warm."""
+    def turns(key):
+        return "/".join(f"{ms:.4f}" for ms in t[key + "_turns"])
+    return " | ".join(
+        f"{route} {turns(route + '_flush')} ms flushed, "
+        f"{turns(route + '_clean')} ms flushed clean, {turns(route)} ms "
+        "L2-warm" for route in ("tiled", "rows"))
+
+
+def check_routes(label: str, run_route, ref, bar: float, pad=None) -> tuple:
+    """Both routes of a kernel against the plain result `ref`: rel error
+    within `bar`, `pad(y)` (the padding rows) exactly zero, a second call
+    equal bit for bit.  Returns {route: (rel, max_abs)} and whether the two
+    routes agree bit for bit."""
+    errs, ys = {}, {}
+    for route in ("rows", "tiled"):
+        y = run_route(route)
+        torch.cuda.synchronize()
+        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+        pad_max = 0.0 if pad is None else float(pad(y).abs().max())
+        same = torch.equal(run_route(route), y)
+        if not (y.dtype == ref.dtype and rel <= bar and pad_max == 0.0
+                and same):
+            raise AssertionError(
+                f"{label} route {route}: rel {rel:.3e} (bar {bar}), padding "
+                f"max {pad_max}, repeat bit for bit: {same}")
+        errs[route] = (rel, float((y - ref).abs().max()))
+        ys[route] = y
+    return errs, torch.equal(ys["rows"], ys["tiled"])
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -214,6 +304,32 @@ def device_phase() -> str:
     return kind
 
 
+_PTXAS = re.compile(
+    r"Compiling entry function '(\S+)' for '(\S+)'.*?(\d+) bytes stack frame, "
+    r"(\d+) bytes spill stores, (\d+) bytes spill loads\s+ptxas info\s+: "
+    r"Used (\d+) registers([^\n]*)", re.DOTALL)
+_KERNEL = re.compile(r"(?=(\d{1,2})([a-z]\w*?)I(\w+?)EEv)")
+
+
+def ptxas_summary(log: str) -> str:
+    """One line per kernel of what `nvcc -Xptxas -v` reported: registers,
+    stack, spills, static shared memory.  Template arguments are decoded
+    from the mangled name (f/d the dtype, Li<N>E an integer, Lb<0|1>E a
+    bool)."""
+    lines = []
+    for name, arch, stack, st, ld, regs, rest in _PTXAS.findall(log):
+        for m in _KERNEL.finditer(name):
+            if len(m[2]) == int(m[1]):      # the length-prefixed identifier
+                args = re.sub(r"L[ib](\d+)E", r",\1", m[3])
+                args = {"f": "float", "d": "double"}.get(args[0], args[0]) \
+                    + args[1:]
+                name = f"{m[2]}<{args}>"
+                break
+        lines.append(f"  {name} ({arch}): {regs} registers, {stack} B stack, "
+                     f"spill {st} B stores / {ld} B loads{rest}")
+    return "\n".join(lines)
+
+
 def build_phase():
     phase("build")
     t0 = time.perf_counter()
@@ -227,7 +343,7 @@ def build_phase():
     for lib, (_, info) in zip(libs, built):
         print(f"{lib}: {info.seconds:.3f} s (cached={info.cached}) -> "
               f"{os.path.relpath(info.path, ROOT)}")
-        print(info.log.strip())
+        print(ptxas_summary(info.log))
 
 
 def m6_operator(dev):
@@ -253,6 +369,13 @@ def k1_phase(dev, mesh, pat, data64, flush):
                               nbp=nbp)
     print(f"matrix 6: nb={nb} nbp={nbp} K={pat.K} N_D={len(noffs)} "
           f"nnz={pat.nnz} offsets {noffs[0]}..{noffs[-1]}")
+    # What any launch costs in these times: each route on one 128-row tile.
+    one = torch.ones((1, 1, pd.PAD), dtype=torch.float32, device=dev)
+    floor = {route: event_ms(lambda: pd.spmv_planes_cuda(
+        (0,), one, one[0, 0], n_in=1, nb=pd.PAD, route=route), 25)
+        for route in pd.ROUTES}
+    print("launch floor (K1 1x1 on 128 rows, one offset, CUDA events): "
+          + ", ".join(f"{r} {ms:.4f} ms" for r, ms in floor.items()))
     n_d = len(noffs)
     sel3 = [iD * 4 + b for iD in range(n_d) for b in range(3)]
     sel1 = [iD * 4 + 3 for iD in range(n_d)]
@@ -262,27 +385,27 @@ def k1_phase(dev, mesh, pat, data64, flush):
         "1x1": (p4_64[3:4][:, sel1].contiguous(), 1),
     }
     rng = np.random.default_rng(2024)
-    bars = {torch.float32: 1e-5, torch.float64: 1e-12}
     summary = {}
-    for dtype, bar in bars.items():
+    for dtype, bar in BARS.items():
         for form, (planes64, n_in) in forms.items():
             data = planes64.to(dtype).contiguous()
             n_out = data.shape[0]
             x = torch.as_tensor(rng.standard_normal(n_in * nbp), dtype=dtype,
                                 device=dev)
             x.reshape(n_in, nbp)[:, nb:] = 0
-            y = pd.spmv_planes(noffs, data, x, n_in=n_in, nb=nb)
-            torch.cuda.synchronize()
-            ref = pd.spmv_planes_plain(noffs, data, x, n_in=n_in, nb=nb)
-            rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
-            abs_err = float((y - ref).abs().max())
-            pad = float(y.reshape(-1, nbp)[:, nb:].abs().max())
-            if not (rel <= bar and pad == 0.0):
-                raise AssertionError(f"K1 {form} {dtype}: rel {rel:.3e} "
-                                     f"(bar {bar}), padding max {pad}")
+            chosen = pd.plane_route(noffs, data, x, n_in)
+            plan = pd.tile_plan(noffs, n_out, n_in, nbp, data.element_size())
 
-            def kern():
-                pd.spmv_planes(noffs, data, x, n_in=n_in, nb=nb)
+            def run_route(route):
+                return pd.spmv_planes_cuda(noffs, data, x, n_in=n_in, nb=nb,
+                                           route=route)
+
+            ref = pd.spmv_planes_plain(noffs, data, x, n_in=n_in, nb=nb)
+            label = f"K1 {form} {str(dtype)[6:]}"
+            errs, same = check_routes(
+                label, run_route, ref, bar,
+                pad=lambda y: y.reshape(-1, nbp)[:, nb:])
+            rel, abs_err = errs[chosen]
 
             def plain():
                 pd.spmv_planes_plain(noffs, data, x, n_in=n_in, nb=nb)
@@ -298,7 +421,13 @@ def k1_phase(dev, mesh, pat, data64, flush):
 
                 def library():
                     csr @ x
-            t = time_all(kern, plain, library, flush)
+            t = time_routes(run_route, chosen, plain, library, flush)
+            if library:
+                host = host_us_per_launch(run_route)
+                print(f"{label}: a launch costs the host, in turns of 2,000 "
+                      "launches in a loop with no sync, "
+                      + ", ".join(f"{r} {'/'.join(f'{u:.1f}' for u in us)} us"
+                                  for r, us in host.items()), flush=True)
             nbytes = data.element_size() * (data.numel() + (n_in + n_out)
                                             * nbp)
             t["bound"], t["bound_by"] = bound_ms(
@@ -307,13 +436,35 @@ def k1_phase(dev, mesh, pat, data64, flush):
             gfs = 2 * nnz / (t["k_flush"] * 1e-3) / 1e9
             lib_txt = (f" | cuSPARSE CSR {t['lib_flush']:.4f} ms flushed, "
                        f"{t['lib']:.4f} ms L2-warm" if library else "")
-            print(f"K1 {form} {str(dtype)[6:]}: rel {rel:.3e} max_abs "
-                  f"{abs_err:.3e} | kernel {t['k_flush']:.4f} ms flushed "
-                  f"({gfs:.1f} GF/s), {t['k']:.4f} ms L2-warm | plain "
+            print(f"{label}: route {chosen} (tile {plan.tn}, {plan.stages} "
+                  f"stages, {plan.smem_bytes} B shared); rel "
+                  + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
+                  + f", routes equal bit for bit: {same}; max_abs "
+                  f"{abs_err:.3e} | {routes_line(t)} | {chosen}: "
+                  f"{gfs:.1f} GF/s flushed | plain "
                   f"{t['p_flush']:.4f} ms flushed, {t['p']:.4f} ms L2-warm"
                   f"{lib_txt} | bound {t['bound']:.4f} ms ({t['bound_by']})",
                   flush=True)
             summary[(form, dtype)] = (abs_err, t)
+
+        # Data that is nonzero where i + D leaves the matrix, and in the
+        # padding rows: the zero fill of the tiled route's x window (and the
+        # rows route's mask) must keep it out; the band crosses tile edges.
+        data = torch.as_tensor(rng.standard_normal(tuple(p4_64.shape)),
+                               dtype=dtype, device=dev)
+        x = torch.as_tensor(rng.standard_normal(4 * nbp), dtype=dtype,
+                            device=dev)
+        ref = pd.spmv_planes_plain(noffs, data, x, n_in=4, nb=nb)
+        errs, _ = check_routes(
+            f"K1 random data {dtype}",
+            lambda route: pd.spmv_planes_cuda(noffs, data, x, n_in=4, nb=nb,
+                                              route=route),
+            ref, bar, pad=lambda y: y.reshape(-1, nbp)[:, nb:])
+        print(f"K1 4x4 {str(dtype)[6:]}, random data nonzero outside the "
+              "matrix and in the padding rows: rel "
+              + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items()))
+    print("K1: padding rows exactly 0 and every call repeated bit for bit, "
+          "both routes")
     return summary
 
 
@@ -330,21 +481,28 @@ def k2_phase(dev, mesh, pat, data64, flush):
           f"halo(A)={max(map(abs, pat.offsets))} "
           f"halo(S)={max(map(abs, s_off))}")
     rng = np.random.default_rng(2025)
-    bars = {torch.float32: 1e-5, torch.float64: 1e-12}
     summary = {}
-    for dtype, bar in bars.items():
+
+    def check(label, offsets, data, x, bar):
+        """K2 against the plain version: rel error within `bar`, a second
+        call equal bit for bit; returns (ref, rel, max_abs)."""
+        y = dia_ops.spmv_dia(offsets, data, x)
+        torch.cuda.synchronize()
+        ref = dia_ops.spmv_dia_plain(offsets, data, x)
+        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+        same = torch.equal(dia_ops.spmv_dia(offsets, data, x), y)
+        if not (y.dtype == data.dtype and rel <= bar and same):
+            raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar}), "
+                                 f"repeat bit for bit: {same}")
+        return ref, rel, float((y - ref).abs().max())
+
+    for dtype, bar in BARS.items():
         for form, (offsets, d64) in forms.items():
             data = d64.to(dtype).contiguous()
             x = torch.as_tensor(rng.standard_normal(n), dtype=dtype,
                                 device=dev)
-            y = dia_ops.spmv_dia(offsets, data, x)
-            torch.cuda.synchronize()
-            ref = dia_ops.spmv_dia_plain(offsets, data, x)
-            rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
-            abs_err = float((y - ref).abs().max())
-            if not (y.dtype == dtype and rel <= bar):
-                raise AssertionError(f"K2 {form} {dtype}: rel {rel:.3e} "
-                                     f"(bar {bar})")
+            label = f"K2 {form} {str(dtype)[6:]} (K={len(offsets)})"
+            ref, rel, abs_err = check(label, offsets, data, x, bar)
             csr = dia_csr(offsets, data)
             lib_rel = float(torch.linalg.norm(csr @ x - ref)
                             / torch.linalg.norm(ref))
@@ -365,15 +523,63 @@ def k2_phase(dev, mesh, pat, data64, flush):
             t["bound"], t["bound_by"] = bound_ms(
                 data.element_size() * (data.numel() + 2 * n), 2 * in_range,
                 dtype)
-            print(f"K2 {form} {str(dtype)[6:]} (K={len(offsets)}): rel "
-                  f"{rel:.3e} max_abs {abs_err:.3e} | kernel "
+            print(f"{label}: rel {rel:.3e} max_abs {abs_err:.3e} | kernel "
                   f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm | "
                   f"plain {t['p_flush']:.4f} / {t['p']:.4f} ms | cuSPARSE "
                   f"CSR (nnz {csr.values().numel()}) {t['lib_flush']:.4f} / "
                   f"{t['lib']:.4f} ms | bound {t['bound']:.4f} ms "
                   f"({t['bound_by']})", flush=True)
             summary[(form, dtype)] = (abs_err, t)
+
+        # Data that is nonzero where i + off leaves the matrix: the mask
+        # per load must keep it out.
+        offsets = pat.offsets
+        data = torch.as_tensor(rng.standard_normal((len(offsets), n)),
+                               dtype=dtype, device=dev)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        _, rel, _ = check(f"K2 random data {dtype}", offsets, data, x, bar)
+        print(f"K2 A's offsets {str(dtype)[6:]}, random data nonzero outside "
+              f"the matrix: rel {rel:.3e}")
+    print("K2: every call repeated bit for bit")
     return summary
+
+
+def route_sweep_phase(dev, pat, flush):
+    """Both routes of K1 away from matrix 6's size, on random operators
+    with matrix 6's node offsets: a quarter of its rows (small tiles) and
+    4x and 8x (persistent blocks that walk several tiles, two window
+    buffers).  Each against the plain version and the other route, then
+    timed."""
+    phase("route sweep: K1, both routes, at 1/4x, 4x and 8x the rows of "
+          "matrix 6")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2028)
+    noffs = pd.node_offsets_from_scalar(pat.offsets)
+    for dtype, bar in BARS.items():
+        for mult in (0.25, 4, 8):
+            nbp = int(29_440 * mult)
+            nb = nbp - 37
+            data = torch.randn((4, 4 * len(noffs), nbp), dtype=dtype,
+                               device=dev, generator=gen)
+            x = torch.randn(4 * nbp, dtype=dtype, device=dev, generator=gen)
+            label = f"K1 4x4 {str(dtype)[6:]} nbp={nbp}"
+            plan = pd.tile_plan(noffs, 4, 4, nbp, data.element_size())
+
+            def run_route(route):
+                return pd.spmv_planes_cuda(noffs, data, x, n_in=4, nb=nb,
+                                           route=route)
+
+            errs, same = check_routes(
+                label, run_route,
+                pd.spmv_planes_plain(noffs, data, x, n_in=4, nb=nb), bar,
+                pad=lambda y: y.reshape(-1, nbp)[:, nb:])
+            if not same:
+                raise AssertionError(f"{label}: the routes differ")
+            t = route_turns(run_route, flush, reps=9)
+            print(f"{label}: tile {plan.tn}, {plan.n_tiles} tiles on "
+                  f"{plan.grid} blocks, {plan.stages} stages, {plan.windows} "
+                  f"window buffer(s); rel {errs['tiled'][0]:.3e}, routes "
+                  f"equal bit for bit | {routes_line(t)}", flush=True)
 
 
 def k3_phase(dev, flush):
@@ -517,8 +723,12 @@ def reset_counters():
 
 
 def counters() -> dict:
-    return {"K1": pd.kernel_launches, "K1 plain": pd.plain_calls,
-            "K2": dia_ops.kernel_launches, "K2 plain": dia_ops.plain_calls,
+    return {"K1": pd.kernel_launches,
+            "K1 tiled": pd.route_launches["tiled"],
+            "K1 rows": pd.route_launches["rows"],
+            "K1 plain": pd.plain_calls,
+            "K2": dia_ops.kernel_launches,
+            "K2 plain": dia_ops.plain_calls,
             "K3": k3_ops.kernel_launches, "K3 plain": k3_ops.plain_calls,
             "K4": mpk_fused.kernel_launches,
             "K4 plain": mpk_fused.plain_calls}
@@ -611,7 +821,8 @@ def plane_path_phase():
     if not 0.5 * JAX_LIN_PER_STEP <= lin <= 2 * JAX_LIN_PER_STEP:
         raise AssertionError(f"mean GMRES/step {lin} outside 0.5x-2x of "
                              f"{JAX_LIN_PER_STEP}")
-    if counts["K1"] <= 0 or counts["K3"] or not no_plain_calls(counts):
+    if counts["K1 tiled"] <= 0 or counts["K1 rows"] or counts["K3"] \
+            or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
     return counts["K1"], lin
 
@@ -633,7 +844,8 @@ def plane_cgs2_phase(plane_lin: float):
     if not 0.8 * plane_lin <= lin <= 1.25 * plane_lin:
         raise AssertionError(f"mean GMRES/step {lin} outside 0.8x-1.25x of "
                              f"the cgs2='xla' plane path's {plane_lin}")
-    if counts["K3"] <= 0 or counts["K1"] <= 0 or not no_plain_calls(counts):
+    if counts["K3"] <= 0 or counts["K1 tiled"] <= 0 or counts["K1 rows"] \
+            or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
     return counts["K3"]
 
@@ -780,6 +992,7 @@ def main() -> int:
                         device=dev)
     k1 = k1_phase(dev, mesh, pat, data64, flush)
     k2 = k2_phase(dev, mesh, pat, data64, flush)
+    route_sweep_phase(dev, pat, flush)
     k3 = k3_phase(dev, flush)
     k4 = k4_phase(dev, pat, data64, flush)
     del flush, data64

@@ -20,6 +20,10 @@
 // once per diagonal, but neighbouring diagonals touch the same lines, which
 // stay in L1/L2.  At matrix 6 (n = 117,500) the grid has 460 blocks on the
 // 132 SMs, enough warps to hide latency (unlike K1's one thread per node).
+// A variant that streamed the operator through a shared-memory ring of bulk
+// copies (the design of K1's tiled route, band_ring.cuh) was built and timed
+// on an H100 against this kernel: level from ~470k rows up, slower below and
+// whenever the operator is warm in the L2 (PERF.md), so it was not kept.
 //
 // The offsets travel by value in the kernel's parameter block (constant
 // bank), so every thread of a warp reads the same offset as a broadcast.

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` has a plain C interface.  At first CUDA use it is
 compiled by `nvcc` for Hopper (`sm_90a`) into `navierstokes_tpu_torch/_build/`
 (listed in `.gitignore`) and loaded with `ctypes`.  The library file name
-carries a hash of the source and the flags, so an edited source rebuilds.
+carries a hash of the source, of every `csrc/` header it includes and of the
+flags, so an edited source or header rebuilds.
 Nothing here runs at import time: a machine without `nvcc` imports the
 package, and only a CUDA launch needs the compiler.
 """
@@ -14,6 +15,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,12 +53,35 @@ def _nvcc() -> str:
                        "and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """`csrc/<name>.cu` and the `csrc/` headers it includes with quotes,
+    directly or through another header, in the order first met."""
+    files = [CSRC / f"{name}.cu"]
+    for path in files:
+        for header in _INCLUDE.findall(path.read_text()):
+            header = (path.parent / header).resolve()
+            if header not in files:
+                files.append(header)
+    return files
+
+
+def source_digest(name: str) -> str:
+    """The hash in the library's file name: sources, headers and flags."""
+    h = hashlib.sha256()
+    for path in source_files(name):
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> BuildInfo:
-    """Compile `csrc/<name>.cu` unless a library for this exact source and
-    these flags exists already."""
+    """Compile `csrc/<name>.cu` unless a library for this exact source, its
+    headers and these flags exists already."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(name)
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if out.exists():
         return BuildInfo(out, 0.0, "", cached=True)

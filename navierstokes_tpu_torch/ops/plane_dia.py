@@ -11,21 +11,33 @@ with j(b, D) = iD * n_in + b (`plane_terms`).  The operator is stored as
 zeros.  `spmv_planes` applies it through the CUDA kernel K1
 (`csrc/plane_dia.cu`) for tensors on the card, and through the plain
 PyTorch version `spmv_planes_plain` for tensors on the CPU.
+
+K1 has two routes that compute the same function (`plane_route` picks one
+by the operator's shape and alignment alone): 'tiled', which streams the
+operator through a shared-memory ring of bulk copies, tile by tile, with
+the x window of a tile in shared memory; and 'rows', one thread per node
+row, which takes every shape.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
-from navierstokes_tpu_torch.ops import cuda_lib
+from navierstokes_tpu_torch.ops import band_ring, cuda_lib
 
 PAD = 128   # nbp granularity: whole 128-thread kernel blocks, aligned rows
+MAX_OFFSETS = 32          # kMaxOffsets of csrc/plane_dia.cu
+MAX_TILE = 256            # kMaxTile: rows of a tile, one consumer thread each
+ROUTES = ("tiled", "rows")
 
-# Plain integer counters: K1 launches, and calls of the plain version.
+# Plain integer counters: K1 launches (all, and by route), and calls of the
+# plain version.
 kernel_launches = 0
+route_launches = dict.fromkeys(ROUTES, 0)
 plain_calls = 0
 
 
@@ -33,6 +45,8 @@ def reset_counters() -> None:
     global kernel_launches, plain_calls
     kernel_launches = 0
     plain_calls = 0
+    for route in ROUTES:
+        route_launches[route] = 0
 
 
 def node_offsets_from_scalar(offsets: tuple) -> tuple:
@@ -108,8 +122,9 @@ def _check(node_offsets, data: torch.Tensor, x: torch.Tensor, n_in: int,
     n_out, nt, nbp = data.shape
     if not (1 <= n_out <= 4 and 1 <= n_in <= 4):
         raise ValueError(f"n_out={n_out}, n_in={n_in}: both must be in 1..4")
-    if not 1 <= len(node_offsets) <= 32:
-        raise ValueError(f"{len(node_offsets)} node offsets; K1 takes 1..32")
+    if not 1 <= len(node_offsets) <= MAX_OFFSETS:
+        raise ValueError(f"{len(node_offsets)} node offsets; K1 takes "
+                         f"1..{MAX_OFFSETS}")
     if nt != n_in * len(node_offsets):
         raise ValueError(f"NT={nt} != n_in * N_D = {n_in * len(node_offsets)}")
     if x.shape != (n_in * nbp,):
@@ -148,43 +163,141 @@ def spmv_planes_plain(node_offsets: tuple, data: torch.Tensor,
     return y.to(x.dtype).reshape(-1)
 
 
-_C_FUNCS = {torch.float32: "plane_spmv_f32", torch.float64: "plane_spmv_f64"}
+class TilePlan(NamedTuple):
+    """The tiled route's launch: `tn` rows per tile, `n_tiles` tiles walked
+    by `grid` persistent blocks, a ring of `stages` slots (one slot: the
+    n_out * n_in row segments of one node offset), `windows` x window
+    buffers (two where a block walks several tiles) of `window` values per
+    input plane, `smem_bytes` of dynamic shared memory."""
+
+    tn: int
+    n_tiles: int
+    grid: int
+    stages: int
+    window: int
+    windows: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(node_offsets: tuple, n_out: int, n_in: int, nbp: int,
+              itemsize: int, n_sm: int = band_ring.N_SM) -> TilePlan | None:
+    """The tiled route's plan for an (n_out, n_in * N_D, nbp) operator, or
+    None where the shape does not fit the route: a row of nbp values is not
+    a multiple of 16 bytes (a bulk copy's alignment), or the x window and
+    two stages do not fit shared memory.
+
+    Tiles fill the card in whole waves of one block per SM (`wave_tile`);
+    tile t owns rows [t * tn, min((t + 1) * tn, nbp)) and reads
+    x_b[t * tn + min(D) .. t * tn + tn + max(D)), zero outside [0, nbp),
+    the window's ends rounded outwards to 16 bytes.  Cached: a solver loop
+    asks for the same plan at every launch."""
+    if (nbp * itemsize) % band_ring.COPY_ALIGN:
+        return None
+    tn = band_ring.wave_tile(nbp, n_sm, MAX_TILE)
+    n_tiles = -(-nbp // tn)
+    grid = min(n_tiles, n_sm)
+    window = band_ring.window_values(tn, node_offsets, itemsize)
+    windows = band_ring.window_buffers(n_tiles, grid)
+    slot_bytes = n_out * n_in * tn * itemsize
+    window_bytes = windows * n_in * window * itemsize
+    stages = band_ring.ring_stages(slot_bytes, window_bytes)
+    if not stages:
+        return None
+    return TilePlan(tn, n_tiles, grid, stages, window, windows,
+                    band_ring.smem_bytes(stages, slot_bytes, window_bytes))
+
+
+def tiled_plan(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor,
+               n_in: int, n_sm: int = band_ring.N_SM) -> TilePlan | None:
+    """The tiled route's plan for these tensors, or None where the route
+    does not take them: `tile_plan` of their shape, and `data` and `x`
+    themselves must start on 16 bytes.  One cache lookup and two address
+    checks: this is all a launch decides."""
+    n_out, _, nbp = data.shape
+    plan = tile_plan(node_offsets, n_out, n_in, nbp, data.element_size(),
+                     n_sm)
+    if data.data_ptr() % band_ring.COPY_ALIGN \
+            or x.data_ptr() % band_ring.COPY_ALIGN:
+        return None
+    return plan
+
+
+def plane_route(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor,
+                n_in: int, n_sm: int = band_ring.N_SM) -> str:
+    """Which K1 route `spmv_planes` takes for this operator: 'tiled' where
+    `tiled_plan` has a plan (rows on 16 bytes, window and ring in shared
+    memory), else 'rows'.  Nothing but the shapes and the alignment
+    decides."""
+    return "rows" if tiled_plan(node_offsets, data, x, n_in, n_sm) is None \
+        else "tiled"
+
+
+_C_FUNCS = {
+    ("rows", torch.float32): "plane_spmv_rows_f32",
+    ("rows", torch.float64): "plane_spmv_rows_f64",
+    ("tiled", torch.float32): "plane_spmv_tiled_f32",
+    ("tiled", torch.float64): "plane_spmv_tiled_f64",
+}
 
 
 @functools.cache
-def _kernel_fn(dtype: torch.dtype):
-    """The C entry point of K1 for `dtype`, built and typed on first use."""
+def _kernel_fn(route: str, dtype: torch.dtype):
+    """The C entry point of K1's `route` for `dtype`, built and typed on
+    first use."""
     lib, _ = cuda_lib.load("plane_dia")
-    fn = getattr(lib, _C_FUNCS[dtype])
+    fn = getattr(lib, _C_FUNCS[route, dtype])
+    plan_args = [ctypes.c_int] * 3 if route == "tiled" else []
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.c_int, ctypes.POINTER(ctypes.c_int), *plan_args,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
-                     x: torch.Tensor, *, n_in: int, nb: int) -> torch.Tensor:
-    """K1 on the card: one launch on the current stream, no sync."""
+                     x: torch.Tensor, *, n_in: int, nb: int,
+                     route: str | None = None) -> torch.Tensor:
+    """K1 on the card: one launch on the current stream, no sync.
+
+    `route` None takes `plane_route`'s choice; 'tiled' or 'rows' forces
+    one (the comparison of the two on the card) and raises where the
+    operator does not fit it.  No route falls back to another."""
     global kernel_launches
     n_out, nbp = _check(node_offsets, data, x, n_in, nb)
     if data.device.type != "cuda":
         raise ValueError(f"K1 needs CUDA tensors, got {data.device}")
-    if data.dtype not in _C_FUNCS:
+    if data.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"K1 takes float32 or float64, got {data.dtype}")
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("K1 needs contiguous data and x")
-    fn = _kernel_fn(data.dtype)
+    if route not in (None,) + ROUTES:
+        raise ValueError(f"K1 route {route!r}: one of {ROUTES}")
+    plan = None
+    if route != "rows":
+        plan = tiled_plan(node_offsets, data, x, n_in,
+                          band_ring.sm_count(x.device))
+        if route is None:
+            route = "rows" if plan is None else "tiled"
+        elif plan is None:
+            raise ValueError(
+                f"K1's tiled route does not take this operator (nbp={nbp}, "
+                f"offsets {min(node_offsets)}..{max(node_offsets)}): its "
+                "rows must start on 16 bytes and its x window fit "
+                f"{band_ring.SMEM_LIMIT} bytes of shared memory")
+    plan_args = () if plan is None else (plan.tn, plan.stages, plan.grid)
+    fn = _kernel_fn(route, data.dtype)
     y = torch.empty((n_out * nbp,), dtype=x.dtype, device=x.device)
-    offs = (ctypes.c_int * len(node_offsets))(*node_offsets)
+    offs = band_ring.c_int_array(node_offsets)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n_out, n_in,
-                len(node_offsets), nb, nbp, offs, stream)
+                len(node_offsets), nb, nbp, offs, *plan_args, stream)
     if rc != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {rc}")
+        raise RuntimeError(f"K1 launch failed ({route}): cudaError {rc}")
     kernel_launches += 1
+    route_launches[route] += 1
     return y
 
 
@@ -195,8 +308,8 @@ def spmv_planes(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor, *,
     The counterpart of the JAX package's `spmv_planes_pallas`: data
     (n_out, n_in * N_D, nbp), term order `plane_terms(node_offsets, n_in)`,
     x flat plane-major (n_in * nbp,), returns (n_out * nbp,).  A CUDA
-    tensor goes through K1 (or raises); a CPU tensor through the plain
-    version."""
+    tensor goes through K1, by the route `plane_route` names (or raises); a
+    CPU tensor through the plain version."""
     if x.device.type == "cpu":
         return spmv_planes_plain(node_offsets, data, x, n_in=n_in, nb=nb)
     return spmv_planes_cuda(node_offsets, data, x, n_in=n_in, nb=nb)

@@ -8,6 +8,8 @@ seed and handed to both, in float64.  The kernel itself runs only on the
 card (`cuda` marker).
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from navierstokes_tpu.ops.pallas_dia import spmv_dia_pallas
 from navierstokes_tpu.solvers import coarse as jco
 from navierstokes_tpu.sparse import dia as jdia
 from navierstokes_tpu_torch import convert
+from navierstokes_tpu_torch.ops import cuda_lib
 from navierstokes_tpu_torch.ops import dia as tdia
 from navierstokes_tpu_torch.ops import spmv as tspmv
 from navierstokes_tpu_torch.sparse import dia as tsd
@@ -237,3 +240,39 @@ def test_kernel_matches_plain_on_the_card():
             ref = tdia.spmv_dia_plain(offsets, data, x)
             err = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
             assert y.dtype == dtype and err <= bar, (dtype, len(offsets), err)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("n", [3000, 3001, 3002, 3003])
+def test_plain_any_row_count_matches_pallas(jdisc, n, dtype, bar):
+    """K2 takes any n: rows need no alignment (n % 4 in {0, 1, 2, 3}).  The
+    plain version against spmv_dia_pallas in interpret mode on the same
+    numpy inputs, random and nonzero also where i + off leaves the matrix:
+    f64 at rel 1e-13, f32 against the f64 answer at rel 1e-6."""
+    offsets = jdisc.dia_pattern.offsets
+    assert max(abs(d) for d in offsets) < n
+    rng = np.random.default_rng(n)
+    data = rng.standard_normal((len(offsets), n))
+    x = rng.standard_normal(n)
+    y_pallas = np.asarray(spmv_dia_pallas(offsets, jnp.asarray(data),
+                                          jnp.asarray(x), tile=256,
+                                          interpret=True))
+    y = tdia.spmv_dia(offsets, torch.as_tensor(data, dtype=dtype),
+                      torch.as_tensor(x, dtype=dtype))
+    assert y.dtype == dtype and y.shape == (n,)
+    assert _rel(y.double().numpy(), y_pallas) <= bar
+
+
+def test_constants_match_the_source():
+    """The wrapper mirrors K2's limit on the diagonals; the kernel's
+    parameter block (the offsets by value, beside three pointers and n)
+    stays inside the 4 KB a launch may pass."""
+    text = (cuda_lib.CSRC / "dia.cu").read_text()
+    k2 = {m[1]: int(m[2]) for m in re.finditer(
+        r"constexpr int (k\w+) = (\d+);", text)}
+    assert k2["kMaxDiagonals"] == tdia.MAX_DIAGONALS
+    assert k2["kThreads"] % 32 == 0 and k2["kThreads"] <= 1024
+    assert 4 * (k2["kMaxDiagonals"] + 1) + 3 * 8 + 4 <= 4096
+    assert '#include "' not in text      # one source, no header to hash
+    assert cuda_lib.source_files("dia") == [cuda_lib.CSRC / "dia.cu"]
