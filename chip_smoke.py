@@ -13,23 +13,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      leaves the matrix.  The routes are timed in turns (rows, tiled,
      tiled, rows) with CUDA events, with and without an L2 flush, beside
      the plain version, cuSPARSE's CSR SpMV on the same matrix
-     (torch.sparse, the yardstick) and the HBM bound, with the launch
-     floor (each route on one tile) and what a launch of each route costs
-     the host; then both routes at a quarter, 4x and 8x of matrix 6's
-     rows, where a block walks several tiles;
+     (torch.sparse, the yardstick, for every form) and the HBM bound, with
+     the launch floor (each route on one tile) and what a launch of each
+     route costs the host; then both routes at a quarter, 4x and 8x of
+     matrix 6's rows, where a block walks several tiles;
   4. K2 against its plain version on the matrix-6 scalar-DIA operators:
      A (81 diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and
      float64, and on random data likewise, timed like K1.  Phases 3 and 4
      require a second call to repeat the first bit for bit;
   5. K3 against its plain version at the matrix-6 Krylov shapes (V of
      31 x 117,760 in float32, the plane layout, and 31 x 117,500 in
-     float64; k = 0, 15, 29; plain and compensated sums), rows above k
-     poisoned with NaN; timed beside the four cuBLAS GEMVs of the
-     cgs2='xla' path, the HBM bound (one read of V[:k+1], w in, w2 and h
-     out) and the HBM traffic of K3's three sweeps;
+     float64) and at matrix 8's n = 511,024, where V[:k+1] does not fit in
+     shared memory; k = 0, 15, 29; plain and compensated sums; rows above
+     k poisoned with NaN, a second call equal bit for bit; timed beside
+     the four cuBLAS GEMVs of the cgs2='xla' path and the HBM bound (one
+     read of V[:k+1], w in, w2 and h out), with its plan (grid, resident
+     rows, passes over V), the floor of a cooperative launch with 0-2
+     grid barriers and what a call costs the host;
   6. K4 (z = A^p x, p = 2, 3, 4, float32 and float64) on the matrix-6
-     operator A against its plain version and p chained K2 launches,
-     timed beside those, p chained cuSPARSE CSR SpMVs and the HBM bound;
+     operator A, equal bit for bit to p chained K2 launches and within
+     the bar of its plain version, timed beside those, p chained cuSPARSE
+     CSR SpMVs and the HBM bound, with its plan (resident diagonals,
+     passes over A) and the cooperative floor with p - 1 barriers; then
+     offsets of +-6000 on random data, a halo too wide for a design of
+     overlapping row tiles, and of +-20,000, too wide for K4's source
+     window in shared memory;
   7. plane path: `run.main` at matrix 6 in float32 (Stokes + 5 steps, the
      'tlp' flagship), the kernel launch counters reset before and read
      after, with the physics checks of the repo (BC values exact, finite
@@ -85,7 +93,7 @@ from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops import cgs2 as k3_ops
 from navierstokes_tpu_torch.ops import cuda_lib
 from navierstokes_tpu_torch.ops import dia as dia_ops
-from navierstokes_tpu_torch.ops import mpk, mpk_fused
+from navierstokes_tpu_torch.ops import grid_sync, mpk, mpk_fused
 from navierstokes_tpu_torch.ops import plane_dia as pd
 from navierstokes_tpu_torch.ops.block import block4_inverse
 from navierstokes_tpu_torch.solvers.coarse import build_aggregates
@@ -185,18 +193,20 @@ def dia_csr(offsets, data):
 
 
 def plane_csr(noffs, planes, nb, nbp):
-    """The 4x4 plane operator as CSR in plane ordering (row a*nbp + i,
-    column b*nbp + i + D), live rows and in-range columns only."""
+    """A square plane operator (4x4, or a 3x3 or 1x1 Schur sub-block) as
+    CSR in plane ordering (row a*nbp + i, column b*nbp + i + D), live rows
+    and in-range columns only."""
+    n_io = planes.shape[0]
     i = torch.arange(nb, device=planes.device)
     rows, cols, vals = [], [], []
-    for a in range(4):
-        for j, (b, d) in enumerate(pd.plane_terms(noffs)):
+    for a in range(n_io):
+        for j, (b, d) in enumerate(pd.plane_terms(noffs, n_io)):
             ok = (i + d >= 0) & (i + d < nbp)
             rows.append(a * nbp + i[ok])
             cols.append(b * nbp + i[ok] + d)
             vals.append(planes[a, j, :nb][ok])
     return csr_from_coo(torch.cat(rows), torch.cat(cols), torch.cat(vals),
-                        4 * nbp)
+                        n_io * nbp)
 
 
 def time_all(kern, plain, library, flush) -> dict:
@@ -410,19 +420,16 @@ def k1_phase(dev, mesh, pat, data64, flush):
             def plain():
                 pd.spmv_planes_plain(noffs, data, x, n_in=n_in, nb=nb)
 
-            library = None
-            if form == "4x4":
-                csr = plane_csr(noffs, data, nb, nbp)
-                y_lib = csr @ x
-                lib_rel = float(torch.linalg.norm(y_lib - ref)
-                                / torch.linalg.norm(ref))
-                if lib_rel > bar:
-                    raise AssertionError(f"cuSPARSE CSR disagrees: {lib_rel}")
+            csr = plane_csr(noffs, data, nb, nbp)
+            lib_rel = float(torch.linalg.norm(csr @ x - ref)
+                            / torch.linalg.norm(ref))
+            if lib_rel > bar:
+                raise AssertionError(f"cuSPARSE CSR disagrees: {lib_rel}")
 
-                def library():
-                    csr @ x
+            def library():
+                csr @ x
             t = time_routes(run_route, chosen, plain, library, flush)
-            if library:
+            if form == "4x4":
                 host = host_us_per_launch(run_route)
                 print(f"{label}: a launch costs the host, in turns of 2,000 "
                       "launches in a loop with no sync, "
@@ -435,7 +442,7 @@ def k1_phase(dev, mesh, pat, data64, flush):
             nnz = NNZ_M6 * n_out * n_in // 16
             gfs = 2 * nnz / (t["k_flush"] * 1e-3) / 1e9
             lib_txt = (f" | cuSPARSE CSR {t['lib_flush']:.4f} ms flushed, "
-                       f"{t['lib']:.4f} ms L2-warm" if library else "")
+                       f"{t['lib']:.4f} ms L2-warm")
             print(f"{label}: route {chosen} (tile {plan.tn}, {plan.stages} "
                   f"stages, {plan.smem_bytes} B shared); rel "
                   + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
@@ -582,79 +589,131 @@ def route_sweep_phase(dev, pat, flush):
                   f"equal bit for bit | {routes_line(t)}", flush=True)
 
 
+def coop_floor(grid: int, smem: int, barriers, dev) -> dict:
+    """Device ms of grid_sync's empty kernel, launched as K3 and K4 are
+    (`grid` blocks, `smem` bytes each), per barrier count: the floor of a
+    persistent launch, beside the 5.2 us of a plain one (K1's phase)."""
+    return {b: event_ms(lambda: grid_sync.empty_launch(grid, smem, b, dev),
+                        25) for b in barriers}
+
+
+def floor_text(floor: dict) -> str:
+    return ", ".join(f"{b} barrier{'s' * (b != 1)} {ms:.4f} ms"
+                     for b, ms in floor.items())
+
+
 def k3_phase(dev, flush):
-    phase("K3 against its plain version (matrix-6 Krylov shapes)")
+    phase("K3 against its plain version (matrix-6 Krylov shapes and the "
+          "Schur tier's n)")
     rng = np.random.default_rng(2026)
     summary = {}
-    for dtype, n in ((torch.float32, 117_760), (torch.float64, 117_500)):
+    # (dtype, n, timed (k, compensated)): matrix 6 in the plane layout
+    # (f32) and the scalar one (f64); matrix 8's n, where V[:k+1] does not
+    # fit in shared memory and rows R..k are read again in every phase.
+    every = [(k, c) for k in (0, 15, 29) for c in (False, True)]
+    cases = ((torch.float32, 117_760, every), (torch.float64, 117_500, every),
+             (torch.float32, 511_024, [(15, False), (29, False)]),
+             (torch.float64, 511_024, [(29, False)]))
+    for dtype, n, timed in cases:
         bar = BARS[dtype]
+        s = torch.empty((), dtype=dtype).element_size()
         # orthonormal rows 0..29, as GMRES keeps them
         q = torch.linalg.qr(torch.as_tensor(rng.standard_normal((n, 30))))[0]
         V = torch.zeros((31, n), dtype=dtype, device=dev)
         V[:30] = q.T.to(dtype).to(dev)
         w = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
-        for k in (0, 15, 29):
+        for k, comp in every:
             poisoned = V.clone()
             poisoned[k + 1:] = float("nan")
-            for comp in (False, True):
-                w2, h = k3_ops.cgs2_project(poisoned, w, k, compensated=comp)
+            w2, h = k3_ops.cgs2_project(poisoned, w, k, compensated=comp)
+            torch.cuda.synchronize()
+            w2_r, h_r = k3_ops.cgs2_project_plain(V, w, k, compensated=comp)
+            rel = max(float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+                      for a, b in ((w2, w2_r), (h, h_r)))
+            abs_err = max(float((w2 - w2_r).abs().max()),
+                          float((h - h_r).abs().max()))
+            again = k3_ops.cgs2_project(poisoned, w, k, compensated=comp)
+            if not (rel <= bar and bool((h[k + 1:] == 0).all())
+                    and torch.equal(again[0], w2)
+                    and torch.equal(again[1], h)):
+                raise AssertionError(
+                    f"K3 {dtype} n={n} k={k} comp={comp}: rel {rel:.3e} "
+                    f"(bar {bar}), h beyond k {h[k + 1:].abs().max()}, "
+                    f"repeat bit for bit: {torch.equal(again[0], w2)}")
+            pl, grid = k3_ops.device_plan(n, k, dtype, comp, dev)
+            label = (f"K3 {str(dtype)[6:]} n={n} k={k} "
+                     f"{'compensated' if comp else 'plain sums'} ({grid} "
+                     f"blocks, slab {pl.ld}, {pl.rows}/{k + 1} rows resident, "
+                     f"{pl.smem} B shared, "
+                     f"{k3_ops.passes_over_v(k, pl.rows):.2f} passes over V)")
+            if (k, comp) not in timed:
+                print(f"{label}: rel {rel:.3e} max_abs {abs_err:.3e}",
+                      flush=True)
+                continue
+
+            def kern():
+                k3_ops.cgs2_project(V, w, k, compensated=comp)
+
+            def plain():
+                k3_ops.cgs2_project_plain(V, w, k, compensated=comp)
+
+            def library():
+                vk = V[:k + 1]
+                h1 = vk @ w
+                w1 = w - vk.T @ h1
+                h2 = vk @ w1
+                return w1 - vk.T @ h2
+
+            t = time_all(kern, plain, library, flush)
+            # the function's bound: V[:k+1] read once, w in, w2 and h out
+            t["bound"], t["bound_by"] = bound_ms(
+                ((k + 3) * n + V.shape[0]) * s, 8 * (k + 1) * n, dtype)
+            print(f"{label}: rel {rel:.3e} max_abs {abs_err:.3e} | kernel "
+                  f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm | "
+                  f"plain {t['p_flush']:.4f} / {t['p']:.4f} ms | four cuBLAS "
+                  f"GEMVs {t['lib_flush']:.4f} / {t['lib']:.4f} ms | bound "
+                  f"{t['bound']:.4f} ms ({t['bound_by']})", flush=True)
+            summary[(dtype, n, k, comp)] = (abs_err, t)
+            if (dtype, n, k, comp) == (torch.float32, 117_760, 15, False):
+                floor = coop_floor(grid, pl.smem, (0, 1, 2), dev)
+                print(f"K3's cooperative launch floor (empty kernel, {grid} "
+                      f"blocks, {pl.smem} B shared; K3 has 2 barriers): "
+                      f"{floor_text(floor)}", flush=True)
+                us = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(2000):
+                        kern()
+                    us.append((time.perf_counter() - t0) / 2000 * 1e6)
                 torch.cuda.synchronize()
-                w2_r, h_r = k3_ops.cgs2_project_plain(V, w, k,
-                                                      compensated=comp)
-                rel = max(float(torch.linalg.norm(a - b)
-                                / torch.linalg.norm(b))
-                          for a, b in ((w2, w2_r), (h, h_r)))
-                abs_err = max(float((w2 - w2_r).abs().max()),
-                              float((h - h_r).abs().max()))
-                again = k3_ops.cgs2_project(poisoned, w, k, compensated=comp)
-                if not (rel <= bar and bool((h[k + 1:] == 0).all())
-                        and torch.equal(again[0], w2)
-                        and torch.equal(again[1], h)):
-                    raise AssertionError(
-                        f"K3 {dtype} k={k} comp={comp}: rel {rel:.3e} (bar "
-                        f"{bar}), h beyond k {h[k + 1:].abs().max()}, "
-                        "repeat bit for bit: "
-                        f"{torch.equal(again[0], w2)}")
-
-                def kern():
-                    k3_ops.cgs2_project(V, w, k, compensated=comp)
-
-                def plain():
-                    k3_ops.cgs2_project_plain(V, w, k, compensated=comp)
-
-                def library():
-                    vk = V[:k + 1]
-                    h1 = vk @ w
-                    w1 = w - vk.T @ h1
-                    h2 = vk @ w1
-                    return w1 - vk.T @ h2
-
-                t = time_all(kern, plain, library, flush)
-                # the function's bound: V[:k+1] read once, w in, w2 and h
-                # out; K3's three sweeps also re-read V[:k+1] twice and
-                # move w1 three times
-                s = V.element_size()
-                t["bound"], t["bound_by"] = bound_ms(
-                    ((k + 3) * n + V.shape[0]) * s, 8 * (k + 1) * n, dtype)
-                sweeps_ms = 1e3 * (3 * (k + 1) + 5) * n * s / HBM_BYTES_PER_S
-                print(f"K3 {str(dtype)[6:]} k={k} "
-                      f"{'compensated' if comp else 'plain sums'} (tile "
-                      f"{k3_ops.tile_columns(k, V.element_size())}): rel "
-                      f"{rel:.3e} max_abs {abs_err:.3e} | kernel "
-                      f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms "
-                      f"L2-warm | plain {t['p_flush']:.4f} / {t['p']:.4f} ms "
-                      f"| four cuBLAS GEMVs {t['lib_flush']:.4f} / "
-                      f"{t['lib']:.4f} ms | bound {t['bound']:.4f} ms "
-                      f"({t['bound_by']}) | three-sweep traffic "
-                      f"{sweeps_ms:.4f} ms", flush=True)
-                summary[(dtype, k, comp)] = (abs_err, t)
+                print("K3 f32 k=15: a call costs the host "
+                      f"{'/'.join(f'{u:.1f}' for u in us)} us (two turns of "
+                      "2,000 calls in a loop with no sync)", flush=True)
     print("K3: h beyond k exactly 0 with NaN rows above k; every call "
           "repeats bit for bit")
     return summary
 
 
+def k4_check(label, offsets, data, x, p, bar):
+    """K4 against p chained K2 launches (bit for bit, in two calls) and its
+    plain version (rel within `bar`); returns (rel, max_abs)."""
+    z = mpk_fused.spmpv_dia(offsets, data, x, power=p)
+    torch.cuda.synchronize()
+    chained = mpk.matrix_power(offsets, data, x, p)
+    ref = mpk_fused.spmpv_dia_plain(offsets, data, x, power=p)
+    rel = float(torch.linalg.norm(z - ref) / torch.linalg.norm(ref))
+    same = torch.equal(z, chained)
+    again = torch.equal(mpk_fused.spmpv_dia(offsets, data, x, power=p), z)
+    if not (rel <= bar and same and again):
+        raise AssertionError(f"{label} p={p}: rel {rel:.3e} to plain (bar "
+                             f"{bar}), equal to chained K2: {same}, repeat "
+                             f"bit for bit: {again}")
+    return rel, float((z - ref).abs().max())
+
+
 def k4_phase(dev, pat, data64, flush):
-    phase("K4 against its plain version and chained K2 (matrix-6 A)")
+    phase("K4 against chained K2 and its plain version (matrix-6 A)")
     offsets = pat.offsets
     n = data64.shape[1]
     in_range = sum(n - abs(d) for d in offsets)
@@ -665,21 +724,16 @@ def k4_phase(dev, pat, data64, flush):
         data = data64.to(dtype).contiguous()
         csr = dia_csr(offsets, data)
         x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
+        pl, grid = mpk_fused.device_plan(n, offsets, dtype, dev)
+        floor = coop_floor(grid, pl.smem, (1, 2, 3), dev)
+        print(f"K4 {str(dtype)[6:]}: {grid} blocks, slab {pl.ld} rows, "
+              f"source window {pl.window} values, {pl.resident}/"
+              f"{len(offsets)} diagonals resident, {pl.smem} B shared; "
+              f"cooperative launch floor (empty kernel, same grid "
+              f"and shared memory; K4 has p - 1 barriers): "
+              f"{floor_text(floor)}", flush=True)
         for p in mpk_fused.POWERS:
-            tile = mpk_fused.device_tile(n, offsets, power=p, dtype=dtype,
-                                         device=dev)
-            z = mpk_fused.spmpv_dia(offsets, data, x, power=p)
-            torch.cuda.synchronize()
-            ref = mpk_fused.spmpv_dia_plain(offsets, data, x, power=p)
-            chained = mpk.matrix_power(offsets, data, x, p)
-            rel = float(torch.linalg.norm(z - ref) / torch.linalg.norm(ref))
-            rel_k2 = float(torch.linalg.norm(z - chained)
-                           / torch.linalg.norm(chained))
-            abs_err = float((z - ref).abs().max())
-            if not (rel <= bar and rel_k2 <= bar):
-                raise AssertionError(f"K4 {dtype} p={p}: rel {rel:.3e} to "
-                                     f"plain, {rel_k2:.3e} to chained K2 "
-                                     f"(bar {bar})")
+            rel, abs_err = k4_check(f"K4 {dtype}", offsets, data, x, p, bar)
 
             def kern():
                 mpk_fused.spmpv_dia(offsets, data, x, power=p)
@@ -701,17 +755,35 @@ def k4_phase(dev, pat, data64, flush):
             t["bound"], t["bound_by"] = bound_ms(
                 data.element_size() * (data.numel() + 2 * n),
                 2 * p * in_range, dtype)
-            passes = mpk_fused.overlap_ratio(n, offsets, power=p, tile=tile)
-            print(f"K4 {str(dtype)[6:]} p={p} (tile {tile}, {passes:.2f} "
-                  f"passes over A vs {p} chained): rel {rel:.3e} to plain, "
-                  f"{rel_k2:.3e} to chained K2, max_abs {abs_err:.3e} | "
-                  f"kernel {t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms "
-                  f"L2-warm | plain {t['p_flush']:.4f} / {t['p']:.4f} ms | "
-                  f"{p} chained K2 {t['k2_flush']:.4f} / {t['k2']:.4f} ms | "
-                  f"{p} chained cuSPARSE CSR {t['lib_flush']:.4f} / "
-                  f"{t['lib']:.4f} ms | bound {t['bound']:.4f} ms "
-                  f"({t['bound_by']})", flush=True)
+            passes = mpk_fused.passes_over_a(len(offsets), pl.resident, p)
+            print(f"K4 {str(dtype)[6:]} p={p} ({passes:.2f} passes over A vs "
+                  f"{p} chained): equal to {p} chained K2 bit for bit, rel "
+                  f"{rel:.3e} to plain, max_abs {abs_err:.3e} | kernel "
+                  f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm | "
+                  f"plain {t['p_flush']:.4f} / {t['p']:.4f} ms | {p} chained "
+                  f"K2 {t['k2_flush']:.4f} / {t['k2']:.4f} ms | {p} chained "
+                  f"cuSPARSE CSR {t['lib_flush']:.4f} / {t['lib']:.4f} ms | "
+                  f"bound {t['bound']:.4f} ms ({t['bound_by']}) | floor with "
+                  f"{p - 1} barrier{'s' * (p > 2)} {floor[p - 1]:.4f} ms",
+                  flush=True)
             summary[(dtype, p)] = (abs_err, t)
+        # A halo too wide for overlapping row tiles in shared memory, and
+        # a span too wide for K4's source window there, on random data
+        # that is nonzero outside the matrix.
+        for wide in ((-6000, -2607, -1, 0, 1, 2607, 6000),
+                     (-20_000, -1, 0, 1, 20_000)):
+            rdata = torch.as_tensor(rng.standard_normal((len(wide), n)) / 3,
+                                    dtype=dtype, device=dev)
+            label = f"K4 {str(dtype)[6:]} offsets +-{wide[-1]}"
+            rels = [k4_check(label, wide, rdata, x, p, bar)[0]
+                    for p in mpk_fused.POWERS]
+            wpl, _ = mpk_fused.device_plan(n, wide, dtype, dev)
+            print(f"{label} (source window {wpl.window} values), random "
+                  "data nonzero outside the matrix: equal to chained K2 bit "
+                  "for bit, rel to plain "
+                  + ", ".join(f"{r:.3e}" for r in rels), flush=True)
+    print("K4: equal to p chained K2 launches bit for bit at every p, dtype "
+          "and halo; every call repeats bit for bit")
     return summary
 
 
@@ -847,6 +919,15 @@ def plane_cgs2_phase(plane_lin: float):
     if counts["K3"] <= 0 or counts["K1 tiled"] <= 0 or counts["K1 rows"] \
             or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
+    # one launch per projection, one projection per GMRES iteration (a
+    # breakdown adds the one whose column is dropped)
+    gmres = out.solver.stokes_result.iters + sum(
+        st.lin_iters for _, st, _ in out.solver.history)
+    print(f"K3 launches {counts['K3']} for {gmres} GMRES iterations "
+          f"(Stokes + steps): {counts['K3'] / gmres:.3f} per iteration")
+    if not gmres <= counts["K3"] <= 1.05 * gmres:
+        raise AssertionError(f"{counts['K3']} K3 launches for {gmres} GMRES "
+                             "iterations")
     return counts["K3"]
 
 
@@ -1011,7 +1092,7 @@ def main() -> int:
         kernel_entry("plane_spmv", k1_launches, *k1[("4x4", torch.float32)]),
         kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)]),
         kernel_entry("cgs2_project", k3_launches,
-                     *k3[(torch.float32, 15, False)]),
+                     *k3[(torch.float32, 117_760, 15, False)]),
         kernel_entry("spmpv_dia", k4_launches, *k4[(torch.float32, 2)]),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -92,19 +92,14 @@ def run_one(kernel: str, disc, data: torch.Tensor, *,
          functools.partial(spmv_plane, nb=nb), noffs, p4, k, to_plane_layout),
     ]
     if kernel in ("spm2v", "spm3v", "spm4v"):
-        try:
-            t_rows = mpk_fused.device_tile(n, offsets, power=k,
-                                           dtype=data.dtype,
-                                           device=data.device)
-        except ValueError as e:      # the frames do not fit: say so
-            print(f"{label} DIA FUSED K4 skipped: {e}", flush=True)
-        else:
-            ratio = mpk_fused.overlap_ratio(n, offsets, power=k, tile=t_rows)
-            variants.append(
-                (f"DIA FUSED K4 t={t_rows} ({ratio:.2f} passes over A vs "
-                 f"{k})",
-                 functools.partial(mpk_fused.spmpv_dia, power=k, tile=t_rows),
-                 offsets, data, 1, None))
+        plan, _ = mpk_fused.device_plan(n, offsets, data.dtype, data.device)
+        passes = mpk_fused.passes_over_a(len(offsets), plan.resident, k)
+        variants.append(
+            (f"DIA FUSED K4 slab={plan.ld} ({plan.resident}/{len(offsets)} "
+             f"diagonals in shared memory, {passes:.2f} passes over A vs "
+             f"{k})",
+             functools.partial(mpk_fused.spmpv_dia, power=k), offsets, data,
+             1, None))
 
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(n),
                         dtype=data.dtype, device=data.device)

@@ -27,7 +27,8 @@ from navierstokes_tpu.solvers.gmres import gmres as j_gmres
 from navierstokes_tpu_torch import convert, run
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops import cgs2 as tcgs2
-from navierstokes_tpu_torch.ops import cuda_lib
+from navierstokes_tpu_torch.ops import cuda_lib, grid_sync
+from navierstokes_tpu_torch.ops.band_ring import SMEM_LIMIT
 from navierstokes_tpu_torch.solvers.gmres import gmres
 
 torch.set_num_threads(1)
@@ -107,25 +108,78 @@ def test_plain_float32_accumulates_in_float32():
                      / torch.linalg.norm(h_64)) < 1e-6
 
 
-def test_tile_columns():
-    """Sweep 2 keeps (k+1) rows of its column tile in shared memory: the
-    tile halves as k grows, down to 32 columns at the 512-row cap."""
-    assert tcgs2.tile_columns(0, 4) == 512
-    assert tcgs2.tile_columns(15, 4) == 512
-    assert tcgs2.tile_columns(29, 8) == 256
-    assert tcgs2.tile_columns(511, 8) == 32
-    for k in range(0, 512, 7):
+@pytest.mark.parametrize("grid", [132, 16])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_slab_split_covers_n(grid, itemsize):
+    """grid_sync's slabs cover [0, n) in order, disjoint, with every cut on
+    16 bytes, none longer than max_slab (the row stride in shared memory)
+    and none more than 16 bytes shorter than another, for ragged n and
+    n smaller than the grid."""
+    align = 16 // itemsize
+    for n in (1, 3, 17, 10_007, 117_500, 117_760, 511_024, 1_000_003):
+        cuts = grid_sync.slab_cuts(n, grid, itemsize)
+        assert cuts[0] == 0 and cuts[-1] == n and len(cuts) == grid + 1
+        sizes = [b - a for a, b in zip(cuts, cuts[1:])]
+        assert min(sizes) >= 0
+        assert all(c % align == 0 for c in cuts[:-1])
+        assert max(sizes) <= grid_sync.max_slab(n, grid, itemsize)
+        assert max(sizes) - min(sizes) < 2 * align or n < grid * align
+    assert grid_sync.max_slab(117_760, 132, 4) == 896
+    assert grid_sync.max_slab(117_500, 132, 8) == 892
+
+
+def test_plan_fits_the_opt_in():
+    """K3's plan: h1, h2, w1's slab and the R resident rows fit the 227 KB
+    opt-in at every k <= 511 in f32 and f64, R = k+1 wherever the rows fit,
+    and the matrix-6 GMRES shapes keep all of V[:k+1] (up to 30 rows of
+    892 f64 values, 214 KB) resident; at the Schur tier's n and above, R
+    drops below k+1."""
+    for n in (1_024, 117_760, 511_024, 1_000_003, 4_000_000):
         for item in (4, 8):
-            tc = tcgs2.tile_columns(k, item)
-            assert tc == 32 or (k + 1) * tc * item <= tcgs2.SWEEP2_SMEM
+            for k in range(512):
+                pl = tcgs2.plan(n, k, item)
+                row = pl.ld * item
+                assert pl.smem <= SMEM_LIMIT
+                assert 0 <= pl.rows <= k + 1
+                assert pl.rows == k + 1 or pl.smem + row > SMEM_LIMIT
+                assert pl.smem == (tcgs2.HEADER_BYTES
+                                   + -(-2 * (k + 1) * item // 16) * 16
+                                   + (row if pl.w1_shared else 0)
+                                   + pl.rows * row)
+    assert tcgs2.plan(117_760, 15, 4).rows == 16
+    assert tcgs2.plan(117_760, 29, 4).rows == 30
+    f64 = tcgs2.plan(117_500, 29, 8)
+    assert f64.rows == 30 and f64.w1_shared and f64.ld == 892
+    assert 30 * 892 * 8 == 214_080 <= f64.smem <= SMEM_LIMIT
+    assert tcgs2.plan(511_024, 29, 4).rows == 13
+    assert tcgs2.plan(1_000_003, 29, 8).rows == 2
+    assert not tcgs2.plan(8_000_000, 0, 8).w1_shared
 
 
-def test_launch_count_matches_the_source():
-    """The wrapper counts every kernel that one projection launches: the
-    launches in csrc/cgs2.cu's project() (three sweeps, two folds)."""
+def test_passes_over_v_counts_the_rereads():
+    """The bench's model of K3's reads of V[:k+1]: once where every live
+    row is resident, three times (three separate sweeps) where none is."""
+    assert tcgs2.passes_over_v(29, 30) == 1.0
+    assert tcgs2.passes_over_v(29, 0) == 3.0
+    assert tcgs2.passes_over_v(29, 13) == (13 + 3 * 17) / 30
+    pl = tcgs2.plan(511_024, 29, 4)
+    assert 1.0 < tcgs2.passes_over_v(29, pl.rows) < 3.0
+
+
+def test_one_cooperative_launch_per_projection():
+    """csrc/cgs2.cu makes one cooperative launch per projection, and no
+    plain launch, so the wrapper counts LAUNCHES == 1 per call; the
+    constants the wrapper mirrors match the source."""
     src = (cuda_lib.CSRC / "cgs2.cu").read_text()
-    body = src[src.index("int project("):src.index("int launch(")]
-    assert body.count("<<<") == tcgs2.LAUNCHES == 5
+    assert "<<<" not in src
+    body = src[src.index("int launch_one("):src.index("int launch(")]
+    assert body.count("grid_sync::launch(") == 1 == tcgs2.LAUNCHES
+    assert src.count("grid_sync::launch(") == 1
+    assert "constexpr int kMaxRows = 512;" in src
+    assert f"constexpr int kHeaderBytes = {tcgs2.HEADER_BYTES};" in src
+    header = (cuda_lib.CSRC / "grid_sync.cuh").read_text()
+    assert "cudaLaunchCooperativeKernel" in header
+    assert cuda_lib.CSRC / "grid_sync.cuh" in cuda_lib.source_files("cgs2")
 
 
 def test_wrapper_rejects_what_it_cannot_take():
@@ -259,32 +313,84 @@ def test_cli_cgs2_pallas_on_cpu():
     assert tcgs2.plain_calls > 0 and tcgs2.kernel_launches == 0
 
 
+def _card_basis(rng, n, dtype, rows=M1):
+    """Orthonormal rows 0..rows-2 (as GMRES keeps them) and a w, on the
+    card."""
+    q = np.linalg.qr(rng.standard_normal((n, rows - 1)))[0].T
+    V = torch.zeros((rows, n), dtype=dtype, device="cuda")
+    V[:rows - 1] = torch.as_tensor(q, dtype=dtype)
+    w = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device="cuda")
+    return V, w
+
+
+def _check_on_card(V, w, k, comp, bar, repeats=1):
+    """K3 on V with NaN rows above k against its plain version on the clean
+    V: rel within `bar`, h beyond k exactly 0, `repeats` calls equal bit
+    for bit."""
+    poisoned = V.clone()
+    poisoned[k + 1:] = float("nan")
+    w2, h = tcgs2.cgs2_project(poisoned, w, k, compensated=comp)
+    torch.cuda.synchronize()
+    w2_r, h_r = tcgs2.cgs2_project_plain(V, w, k, compensated=comp)
+    for got, want in ((w2, w2_r), (h, h_r)):
+        err = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        assert err <= bar, (V.dtype, V.shape, k, comp, err)
+    assert bool((h[k + 1:] == 0).all())
+    for _ in range(repeats - 1):
+        again = tcgs2.cgs2_project(poisoned, w, k, compensated=comp)
+        assert torch.equal(again[0], w2) and torch.equal(again[1], h)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
     """K3 against its plain version on the card: f32 at rel 1e-5, f64 at
-    rel 1e-12, for an n that is no tile multiple and several k, plain and
-    compensated; h beyond k exactly zero, NaN rows above k ignored."""
+    rel 1e-12, for n with bulk copies (n * itemsize a multiple of 16) and
+    without, and several k, plain and compensated; h beyond k exactly zero,
+    NaN rows above k ignored."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K3 has no CPU or interpret mode")
     rng = np.random.default_rng(11)
-    n = 10_007
-    for dtype, bar in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        q = np.linalg.qr(rng.standard_normal((n, M1)))[0].T
-        V = torch.as_tensor(q, dtype=dtype).cuda()
-        w = torch.as_tensor(rng.standard_normal(n), dtype=dtype).cuda()
-        for k in (0, 5, 29):
-            poisoned = V.clone()
-            poisoned[k + 1:] = float("nan")
+    for n in (10_007, 117_760):
+        for dtype, bar in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            V, w = _card_basis(rng, n, dtype)
+            for k in (0, 5, 15, 29):
+                for comp in (False, True):
+                    _check_on_card(V, w, k, comp, bar)
+
+
+@pytest.mark.cuda
+def test_kernel_rereads_rows_that_do_not_fit_on_the_card():
+    """Where V[:k+1]'s slab does not fit in shared memory (R < k+1: the
+    rows above R are read again from global memory in every phase), K3
+    still matches its plain version: n = 1,000,003 in f64 (no bulk copies,
+    R = 2) and n = 511,024 in f32 (the Schur tier's size, bulk copies,
+    R = 13), k = 29, 50 calls each equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3 has no CPU or interpret mode")
+    rng = np.random.default_rng(13)
+    for n, dtype, bar in ((1_000_003, torch.float64, 1e-12),
+                          (511_024, torch.float32, 1e-5)):
+        assert tcgs2.plan(n, 29, torch.empty((), dtype=dtype)
+                          .element_size()).rows < 30
+        V, w = _card_basis(rng, n, dtype)
+        for comp in (False, True):
+            _check_on_card(V, w, 29, comp, bar, repeats=50)
+
+
+@pytest.mark.cuda
+def test_kernel_repeats_bit_for_bit_on_the_card():
+    """50 calls of K3 at the matrix-6 GMRES shapes give the same bits: the
+    partials that other blocks fold after a grid barrier are never read
+    stale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3 has no CPU or interpret mode")
+    rng = np.random.default_rng(14)
+    for n, dtype, bar in ((117_760, torch.float32, 1e-5),
+                          (117_500, torch.float64, 1e-12)):
+        V, w = _card_basis(rng, n, dtype)
+        for k in (15, 29):
             for comp in (False, True):
-                w2, h = tcgs2.cgs2_project(poisoned, w, k, compensated=comp)
-                torch.cuda.synchronize()
-                w2_r, h_r = tcgs2.cgs2_project_plain(V, w, k,
-                                                     compensated=comp)
-                for got, want in ((w2, w2_r), (h, h_r)):
-                    err = float(torch.linalg.norm(got - want)
-                                / torch.linalg.norm(want))
-                    assert err <= bar, (dtype, k, comp, err)
-                assert bool((h[k + 1:] == 0).all())
+                _check_on_card(V, w, k, comp, bar, repeats=50)
 
 
 def test_every_kernel_source_is_listed():

@@ -32,9 +32,13 @@ from navierstokes_tpu.sparse.bcsr import BCSR4
 from navierstokes_tpu.sparse.dia import dia_from_bcsr
 from navierstokes_tpu_torch.bench import spmv_bench
 from navierstokes_tpu_torch.bench.timing import rel_error
+from navierstokes_tpu_torch.fem.assembly import build_discretization as \
+    t_build_discretization
+from navierstokes_tpu_torch.mesh.box import scaling_series_mesh
+from navierstokes_tpu_torch.ops import cuda_lib, grid_sync, mpk_fused
 from navierstokes_tpu_torch.ops import dia as tdia
 from navierstokes_tpu_torch.ops import mpk as tmpk
-from navierstokes_tpu_torch.ops import mpk_fused
+from navierstokes_tpu_torch.ops.band_ring import SMEM_LIMIT
 
 torch.set_num_threads(1)
 
@@ -126,45 +130,62 @@ def test_matrix_powers_match_jax(system):
     assert tdia.plain_calls == 1 + 3 + 3 + 4 + 4 and tdia.kernel_launches == 0
 
 
-def test_overlap_ratio_counts_the_rows_read():
-    """overlap_ratio is the rows each sweep's frame reads, clipped to
-    [0, n), summed over tiles: p for a tile as long as the matrix, about
-    p + p(p-1)h/T for many tiles, as K4 reads them."""
-    offsets = (-50, -1, 0, 1, 50)
-    assert mpk_fused.overlap_ratio(1000, offsets, power=3, tile=1000) == 3.0
-    n, tile = 100_000, 1000
+def test_passes_over_a_counts_the_rereads():
+    """The benchmark's model of K4's reads of A: the resident diagonals
+    once, the rest in every pass; p (chained SpMVs) with none resident, 1
+    (the bound) with all.  At matrix 6 (81 diagonals, 58 resident in f32,
+    25 in f64) far below the 7.75-38 passes of overlapping row tiles."""
+    assert mpk_fused.passes_over_a(81, 81, 4) == 1.0
     for p in (2, 3, 4):
-        r = mpk_fused.overlap_ratio(n, offsets, power=p, tile=tile)
-        assert abs(r - (p + p * (p - 1) * 50 / tile)) < 0.01
-    # brute force on a ragged last tile
-    n, tile, p = 2_345, 256, 3
-    rows = 0
-    for it in range(0, n, tile):
-        for j in range(1, p + 1):
-            frame = range(it - (p - j) * 50, it + tile + (p - j) * 50)
-            rows += sum(1 for i in frame if 0 <= i < n)
-    assert mpk_fused.overlap_ratio(n, offsets, power=p, tile=tile) \
-        == rows / n
+        assert mpk_fused.passes_over_a(81, 0, p) == p
+    assert mpk_fused.passes_over_a(81, 58, 2) == (58 + 2 * 23) / 81
+    assert mpk_fused.passes_over_a(81, 25, 4) == (25 + 4 * 56) / 81
 
 
-def test_choose_tile_fits_the_frames():
-    """K4's row tile at the matrix-6 halo (h = 2,607): the two frames fit
-    the 227 KB of shared memory, the tile never exceeds one per SM, and a
-    halo that leaves no room for a 32-row tile raises."""
-    offsets = (-2607, 0, 2607)
-    n = 117_500
-    for p in (2, 3, 4):
-        for item in (4, 8):
-            t = mpk_fused.choose_tile(n, offsets, power=p, itemsize=item)
-            assert t % 32 == 0 and t >= 32
-            assert mpk_fused.frame_values(t, 2607, p) * item \
-                <= mpk_fused.SMEM_OPTIN
-            assert t <= -(-n // mpk_fused.N_SM) + 31
-    assert mpk_fused.choose_tile(n, offsets, power=4, itemsize=8) == 896
-    assert mpk_fused.choose_tile(n, offsets, power=4, itemsize=8,
-                                 n_sm=16) == 1472
-    with pytest.raises(ValueError, match="shared memory"):
-        mpk_fused.choose_tile(n, (-6000, 0, 6000), power=4, itemsize=8)
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_plan_fits_the_opt_in(itemsize):
+    """K4's plan: the mbarriers, the source window (the slab and the
+    offsets' span, where that takes at most half the opt-in) and the
+    resident diagonals' slabs fit the 227 KB opt-in for every K <= 256, as
+    many diagonals as fit are resident, and the plan holds for a grid of
+    more blocks (shorter slabs).  Matrix 6 (n = 117,500, 81 diagonals
+    spanning +-2,607, slabs of 892 rows) keeps a window of 6,106 values
+    and 58 diagonals in f32, 25 in f64; a span of 40,000 gets no window."""
+    half = (SMEM_LIMIT - mpk_fused.HEADER_BYTES) // 2
+    for n in (300, 117_500, 511_024, 2_345_678):
+        for span in (0, 5_214, 12_000, 40_000):
+            for k in range(1, 257):
+                pl = mpk_fused.plan(n, k, itemsize, span=span)
+                row = pl.ld * itemsize
+                wbytes = -(-pl.window * itemsize // 16) * 16
+                assert pl.window in (0, pl.ld + span)
+                fits = -(-(pl.ld + span) * itemsize // 16) * 16 <= half
+                assert (pl.window > 0) == fits
+                assert pl.smem == (mpk_fused.HEADER_BYTES + wbytes
+                                   + pl.resident * row)
+                assert pl.smem <= SMEM_LIMIT
+                assert pl.resident == k or pl.smem + row > SMEM_LIMIT
+                assert grid_sync.max_slab(n, 4 * mpk_fused.N_SM,
+                                          itemsize) <= pl.ld
+    pl = mpk_fused.plan(117_500, 81, itemsize, span=5_214)
+    assert (pl.ld, pl.window) == (892, 6_106)
+    assert pl.resident == {4: 58, 8: 25}[itemsize]
+    assert mpk_fused.plan(50_000, 5, itemsize, span=40_000).window == 0
+
+
+def test_one_cooperative_launch_per_apply():
+    """csrc/mpk.cu makes one cooperative launch per A^p x (and one for the
+    empty kernel that measures the floor), no plain launch; the constants
+    the wrapper mirrors match the source."""
+    src = (cuda_lib.CSRC / "mpk.cu").read_text()
+    assert "<<<" not in src
+    body = src[src.index("int launch(const void* data"):
+               src.index("int blocks_per_sm(")]
+    assert body.count("grid_sync::launch(") == 1
+    assert src.count("grid_sync::launch(") == 2
+    assert f"constexpr int kHeaderBytes = {mpk_fused.HEADER_BYTES};" in src
+    assert "constexpr int kMaxPower = 4;" in src and max(mpk_fused.POWERS) == 4
+    assert cuda_lib.CSRC / "grid_sync.cuh" in cuda_lib.source_files("mpk")
 
 
 def test_wrapper_rejects_what_it_cannot_take(system):
@@ -226,27 +247,57 @@ def test_bench_flags_outside_the_slice_and_rel_error():
     assert np.isnan(rel_error(np.ones(3), np.zeros(3)))
 
 
+def _card_chain_check(offsets, data, x, repeats):
+    """K4 for p = 2, 3, 4 equal bit for bit to p chained K2 launches, over
+    `repeats` calls, and within the dtype's bar of the plain version."""
+    bar = {torch.float32: 1e-5, torch.float64: 1e-12}[data.dtype]
+    for p in mpk_fused.POWERS:
+        chained = tmpk.matrix_power(offsets, data, x, p)
+        ref = mpk_fused.spmpv_dia_plain(offsets, data, x, power=p)
+        for _ in range(repeats):
+            z = mpk_fused.spmpv_dia(offsets, data, x, power=p)
+            assert torch.equal(z, chained), (data.dtype, p)
+        err = float(torch.linalg.norm(z - ref) / torch.linalg.norm(ref))
+        assert err <= bar, (data.dtype, p, err)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card(system):
-    """K4 against its plain version and p chained K2 launches on the card,
-    f32 at rel 1e-5 and f64 at rel 1e-12, with nonzero data at the
-    out-of-range entries and tiles from 32 rows to the chosen one."""
+    """K4 against p chained K2 launches (bit for bit) and its plain version
+    (f32 at rel 1e-5, f64 at rel 1e-12) on the card, with nonzero data at
+    the out-of-range entries: n = 20,011 (no bulk copies) with offsets up
+    to 300, offsets of +-6000 (a halo too wide for overlapping row tiles
+    in shared memory) and of +-20,000 (a span too wide for the source
+    window in shared memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
     rng = np.random.default_rng(12)
-    offsets = (-300, -41, -1, 0, 1, 41, 300)
-    n = 20_011
-    data = rng.standard_normal((len(offsets), n)) / 3
+    for offsets, n in (((-300, -41, -1, 0, 1, 41, 300), 20_011),
+                       ((-6000, -2607, -1, 0, 1, 2607, 6000), 40_000),
+                       ((-20_000, -1, 0, 1, 20_000), 50_000)):
+        data = rng.standard_normal((len(offsets), n)) / 3
+        x = rng.standard_normal(n)
+        for dtype in (torch.float32, torch.float64):
+            _card_chain_check(
+                offsets, torch.as_tensor(data, dtype=dtype).cuda(),
+                torch.as_tensor(x, dtype=dtype).cuda(), repeats=50)
+
+
+@pytest.mark.cuda
+def test_kernel_equals_chained_k2_at_matrix_6_on_the_card():
+    """At matrix 6's shapes (n = 117,500, its 81 offsets, random data that
+    is nonzero outside the matrix) K4 equals p chained K2 launches bit for
+    bit in f32 and f64, in each of 50 calls: the previous pass's y, which
+    other blocks wrote before the grid barrier, is never read stale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K4 has no CPU or interpret mode")
+    disc = t_build_discretization(scaling_series_mesh(6), torch.float64,
+                                  torch.device("cpu"))
+    offsets = disc.dia_pattern.offsets
+    n = disc.ndof
+    rng = np.random.default_rng(15)
+    data = rng.standard_normal((len(offsets), n)) / 9
     x = rng.standard_normal(n)
-    for dtype, bar in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
-        dt = torch.as_tensor(data, dtype=dtype).cuda()
-        xt = torch.as_tensor(x, dtype=dtype).cuda()
-        for p in (2, 3, 4):
-            ref = mpk_fused.spmpv_dia_plain(offsets, dt, xt, power=p)
-            chained = tmpk.matrix_power(offsets, dt, xt, p)
-            for tile in (32, 160, None):
-                z = mpk_fused.spmpv_dia(offsets, dt, xt, power=p, tile=tile)
-                for want in (ref, chained):
-                    err = float(torch.linalg.norm(z - want)
-                                / torch.linalg.norm(want))
-                    assert err <= bar, (dtype, p, tile, err)
+    for dtype in (torch.float32, torch.float64):
+        _card_chain_check(offsets, torch.as_tensor(data, dtype=dtype).cuda(),
+                          torch.as_tensor(x, dtype=dtype).cuda(), repeats=50)

@@ -456,15 +456,24 @@ def test_build_hash_covers_included_headers(tmp_path, monkeypatch):
              for n in cuda_lib.SOURCES}
     assert names["plane_dia"] == ["plane_dia.cu", "band_ring.cuh"]
     assert names["dia"] == ["dia.cu"]
-    assert names["cgs2"] == ["cgs2.cu"] and names["mpk"] == ["mpk.cu"]
+    assert names["cgs2"] == ["cgs2.cu", "grid_sync.cuh", "band_ring.cuh"]
+    assert names["mpk"] == ["mpk.cu", "grid_sync.cuh", "band_ring.cuh"]
     before = {n: cuda_lib.source_digest(n) for n in cuda_lib.SOURCES}
     copy = tmp_path / "csrc"
     shutil.copytree(cuda_lib.CSRC, copy)
     monkeypatch.setattr(cuda_lib, "CSRC", copy)
     assert {n: cuda_lib.source_digest(n) for n in cuda_lib.SOURCES} == before
-    with open(copy / "band_ring.cuh", "a") as f:
+    with open(copy / "grid_sync.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: cuda_lib.source_digest(n) for n in cuda_lib.SOURCES}
-    assert after["plane_dia"] != before["plane_dia"]
-    for name in ("dia", "cgs2", "mpk"):
+    for name in ("cgs2", "mpk"):
+        assert after[name] != before[name]
+    for name in ("plane_dia", "dia"):
         assert after[name] == before[name]
+    with open(copy / "band_ring.cuh", "a") as f:
+        f.write("// edited\n")
+    again = {n: cuda_lib.source_digest(n) for n in cuda_lib.SOURCES}
+    assert again["plane_dia"] != before["plane_dia"]
+    for name in ("cgs2", "mpk"):
+        assert again[name] != after[name]
+    assert again["dia"] == before["dia"]
