@@ -21,7 +21,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      A (81 diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and
      float64, and on random data likewise, timed like K1.  Phases 3 and 4
      require a second call to repeat the first bit for bit;
-  5. K3 against its plain version at the matrix-6 Krylov shapes (V of
+  5. K1 on the Schur tier's forms: the real S_hat (1x1 on its 65 node
+     offsets, the sumset of the 15) of matrices 6 and 8, both routes,
+     float32 and float64, equal bit for bit between routes and within the
+     bar of the plain version, also on random data nonzero outside the
+     matrix; and matrix 8's 4x4, 3x3 F, 1x3 A_pu and 3x1 A_up by the route
+     the wrapper chooses; each timed flushed and L2-warm beside cuSPARSE
+     and the bound;
+  6. K3 against its plain version at the matrix-6 Krylov shapes (V of
      31 x 117,760 in float32, the plane layout, and 31 x 117,500 in
      float64) and at matrix 8's n = 511,024, where V[:k+1] does not fit in
      shared memory; k = 0, 15, 29; plain and compensated sums; rows above
@@ -30,7 +37,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      read of V[:k+1], w in, w2 and h out), with its plan (grid, resident
      rows, passes over V), the floor of a cooperative launch with 0-2
      grid barriers and what a call costs the host;
-  6. K4 (z = A^p x, p = 2, 3, 4, float32 and float64) on the matrix-6
+  7. K4 (z = A^p x, p = 2, 3, 4, float32 and float64) on the matrix-6
      operator A, equal bit for bit to p chained K2 launches and within
      the bar of its plain version, timed beside those, p chained cuSPARSE
      CSR SpMVs and the HBM bound, with its plan (resident diagonals,
@@ -38,34 +45,51 @@ Phases, in order; any failure raises and the script exits non-zero:
      offsets of +-6000 on random data, a halo too wide for a design of
      overlapping row tiles, and of +-20,000, too wide for K4's source
      window in shared memory;
-  7. plane path: `run.main` at matrix 6 in float32 (Stokes + 5 steps, the
+  8. plane path: `run.main` at matrix 6 in float32 (Stokes + 5 steps, the
      'tlp' flagship), the kernel launch counters reset before and read
      after, with the physics checks of the repo (BC values exact, finite
      state, downstream flow, .dat header);
-  8. the same with `--cgs2 pallas` (K3 in every GMRES iteration): GMRES per
-     step within 0.8x-1.25x of phase 7's, K3 and K1 counted;
-  9. scalar two-level path: `run.main --spmv pallas` at matrix 6 in float32
+  9. the same with `--cgs2 pallas` (K3 in every GMRES iteration): GMRES per
+     step within 0.8x-1.25x of phase 8's, K3 and K1 counted;
+ 10. scalar two-level path: `run.main --spmv pallas` at matrix 6 in float32
      (the 'tl' prep), K2 counted; GMRES per step within 0.8x-1.25x of the
      plane path's, the same physics checks;
- 10. `--spmv pallas --cgs2 pallas_comp` ('tl', K3 with compensated sums),
+ 11. `--spmv pallas --cgs2 pallas_comp` ('tl', K3 with compensated sums),
      Stokes + 2 steps, K3 and K2 counted;
- 11. the float64 CLI default (block-Jacobi + Neumann 2, the 'bj' prep) at
+ 12. the float64 CLI default (block-Jacobi + Neumann 2, the 'bj' prep) at
      matrix 6, Stokes + 2 steps, K2 counted, the same physics checks;
- 12. small-input reference: the golden 5-step trajectory of
+ 13. the Schur tier: `run.main --matrix-id 8` at the float32 defaults
+     ('auto' resolves to 'sch'), Stokes + 3 steps; K1 for every apply, no
+     plain call, Newton <= 3, mean GMRES per step within 0.5x-2x of the
+     JAX package's 54.5, K1 launches per form and route in one more step,
+     peak device memory, the physics checks; then each K1 form of the
+     run's own prep timed;
+ 14. the same with `--cgs2 pallas`, Stokes + 2 steps: K3 where V[:k+1]
+     overflows shared memory, one launch per GMRES iteration, GMRES per
+     step within 0.8x-1.25x of phase 13's;
+ 15. and 16. matrix 9 (Stokes + 2 steps, band around 72.2) and matrix 10
+     (Stokes + 1 step, band around 89.5), as phase 13;
+ 17. small-input reference: the golden 5-step trajectory of
      `tests/data_golden_trajectory.py` (reference-derived C) in float64, in
-     flagship mode with cgs2='xla' and with cgs2='pallas' (K3 in float64)
-     and on the block-Jacobi path, each run twice: the second run must
-     repeat the first bit for bit;
- 13. the benchmark entry point `bench.spmv_bench.main` at matrix 6 for
+     flagship mode with cgs2='xla' and with cgs2='pallas' (K3 in float64),
+     with the Schur tier forced, and on the block-Jacobi path, each run
+     twice: the second run must repeat the first bit for bit;
+ 18. the benchmark entry point `bench.spmv_bench.main` at matrix 6 for
      spmv, spm2v, spm3v and spm4v: its lines, the fused K4 variant within
      rel 1e-5 of the reference, K4 counted;
-then the kernel summary line and, last, the device line.
+ 19. the bench tools of the Schur tier at matrix 8: `transient_bench` (the
+     product default, 3 steps; its TRANSIENT line, finite numbers) and
+     `gmres_decomp` (every part of the 'sch' prep, the four GEMVs and K3);
+then each phase's wall seconds, the kernel summary line and, last, the
+device line.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
@@ -80,7 +104,11 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch import run
-from navierstokes_tpu_torch.bench import spmv_bench
+from navierstokes_tpu_torch.bench import (
+    gmres_decomp,
+    spmv_bench,
+    transient_bench,
+)
 from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
 from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
@@ -126,8 +154,21 @@ KERNELS = {
 BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
+PHASES = []                 # (name, start on the host clock), in order
+
+
 def phase(name: str) -> None:
+    PHASES.append((name, time.perf_counter()))
     print(f"--- {name}", flush=True)
+
+
+def phase_seconds() -> None:
+    """Each phase's wall seconds, and the whole run's."""
+    end = time.perf_counter()
+    starts = [t for _, t in PHASES[1:]] + [end]
+    for (name, t0), t1 in zip(PHASES, starts):
+        print(f"  {t1 - t0:8.1f} s  {name}")
+    print(f"  {end - PHASES[0][1]:8.1f} s  in all")
 
 
 def event_ms(fn, reps: int, flush=None, clean: bool = False,
@@ -169,13 +210,13 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
                                        else "operations")
 
 
-def csr_from_coo(rows, cols, vals, n):
+def csr_from_coo(rows, cols, vals, shape):
     """A CUDA CSR matrix from COO triplets (explicit zeros dropped)."""
     keep = vals != 0
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         coo = torch.sparse_coo_tensor(
-            torch.stack([rows[keep], cols[keep]]), vals[keep], (n, n))
+            torch.stack([rows[keep], cols[keep]]), vals[keep], shape)
         return coo.coalesce().to_sparse_csr()
 
 
@@ -189,24 +230,26 @@ def dia_csr(offsets, data):
         rows.append(i[lo:hi])
         cols.append(i[lo:hi] + d)
         vals.append(data[kk, lo:hi])
-    return csr_from_coo(torch.cat(rows), torch.cat(cols), torch.cat(vals), n)
+    return csr_from_coo(torch.cat(rows), torch.cat(cols), torch.cat(vals),
+                        (n, n))
 
 
-def plane_csr(noffs, planes, nb, nbp):
-    """A square plane operator (4x4, or a 3x3 or 1x1 Schur sub-block) as
-    CSR in plane ordering (row a*nbp + i, column b*nbp + i + D), live rows
-    and in-range columns only."""
-    n_io = planes.shape[0]
+def plane_csr(noffs, planes, nb, nbp, n_in=None):
+    """A plane operator of n_out x n_in planes (4x4, or a Schur sub-block:
+    3x3, 1x3, 3x1, 1x1) as CSR in plane ordering (row a*nbp + i, column
+    b*nbp + i + D), live rows and in-range columns only."""
+    n_out = planes.shape[0]
+    n_in = n_out if n_in is None else n_in
     i = torch.arange(nb, device=planes.device)
     rows, cols, vals = [], [], []
-    for a in range(n_io):
-        for j, (b, d) in enumerate(pd.plane_terms(noffs, n_io)):
+    for a in range(n_out):
+        for j, (b, d) in enumerate(pd.plane_terms(noffs, n_in)):
             ok = (i + d >= 0) & (i + d < nbp)
             rows.append(a * nbp + i[ok])
             cols.append(b * nbp + i[ok] + d)
             vals.append(planes[a, j, :nb][ok])
     return csr_from_coo(torch.cat(rows), torch.cat(cols), torch.cat(vals),
-                        n_io * nbp)
+                        (n_out * nbp, n_in * nbp))
 
 
 def time_all(kern, plain, library, flush) -> dict:
@@ -274,13 +317,14 @@ def routes_line(t: dict) -> str:
         "L2-warm" for route in ("tiled", "rows"))
 
 
-def check_routes(label: str, run_route, ref, bar: float, pad=None) -> tuple:
-    """Both routes of a kernel against the plain result `ref`: rel error
+def check_routes(label: str, run_route, ref, bar: float, pad=None,
+                 routes=("rows", "tiled")) -> tuple:
+    """The routes of a kernel against the plain result `ref`: rel error
     within `bar`, `pad(y)` (the padding rows) exactly zero, a second call
-    equal bit for bit.  Returns {route: (rel, max_abs)} and whether the two
+    equal bit for bit.  Returns {route: (rel, max_abs)} and whether the
     routes agree bit for bit."""
     errs, ys = {}, {}
-    for route in ("rows", "tiled"):
+    for route in routes:
         y = run_route(route)
         torch.cuda.synchronize()
         rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
@@ -293,7 +337,7 @@ def check_routes(label: str, run_route, ref, bar: float, pad=None) -> tuple:
                 f"max {pad_max}, repeat bit for bit: {same}")
         errs[route] = (rel, float((y - ref).abs().max()))
         ys[route] = y
-    return errs, torch.equal(ys["rows"], ys["tiled"])
+    return errs, all(torch.equal(ys[r], ys[routes[0]]) for r in routes)
 
 
 def device_phase() -> str:
@@ -589,6 +633,146 @@ def route_sweep_phase(dev, pat, flush):
                   f"equal bit for bit | {routes_line(t)}", flush=True)
 
 
+def schur_prep(matrix_id: int, dev):
+    """The 'sch' prep of matrix `matrix_id`'s exact Jacobian in float64,
+    with schur_shape='full' so that it holds all five K1 forms of the
+    tier (the prep of `run.main`, which prepares the Stokes and the Newton
+    operators the same way)."""
+    kr = SolverConfig(preconditioner="schur", spmv="plane",
+                      schur_shape="full")
+    cfg = NSConfig(dtype="float64", krylov=kr, stokes_krylov=kr)
+    solver = NavierStokesSolver(scaling_series_mesh(matrix_id), cfg,
+                                device=dev)
+    solver._ensure_prepared()
+    return solver._exact_prep
+
+
+def schur_forms(prep) -> dict:
+    """{form: (node offsets, planes, n_in)}: every K1 form of a 'sch'
+    prep, the 3x1 A_up only where the shape is 'full'."""
+    noffs = prep.node_offsets
+    forms = {"4x4 A": (noffs, prep.p4, 4), "3x3 F": (noffs, prep.p_f, 3),
+             "1x3 A_pu": (noffs, prep.p_b, 3),
+             "1x1 S_hat": (prep.s_offsets, prep.s_planes, 1)}
+    if prep.p_g is not None:
+        forms["3x1 A_up"] = (noffs, prep.p_g, 1)
+    return forms
+
+
+def k1_form(label: str, offs, data, n_in: int, nb: int, flush, rng,
+            routes: bool = False) -> tuple:
+    """One K1 form on x random in its live rows: against its plain version
+    (within BARS, padding rows exactly 0, a second call bit for bit), then
+    timed flushed and L2-warm beside the plain version, cuSPARSE CSR and
+    the bound.  The route the wrapper chooses, or with `routes` both
+    routes in turns, which must agree bit for bit.  Returns (max_abs, t,
+    chosen route)."""
+    dtype = data.dtype
+    n_out, _, nbp = data.shape
+    x = torch.as_tensor(rng.standard_normal(n_in * nbp), dtype=dtype,
+                        device=data.device)
+    x.reshape(n_in, nbp)[:, nb:] = 0
+    chosen = pd.plane_route(offs, data, x, n_in)
+    plan = pd.tile_plan(offs, n_out, n_in, nbp, data.element_size())
+    routes = routes and plan is not None
+
+    def run_route(route):
+        return pd.spmv_planes_cuda(offs, data, x, n_in=n_in, nb=nb,
+                                   route=route)
+
+    def plain():
+        return pd.spmv_planes_plain(offs, data, x, n_in=n_in, nb=nb)
+
+    ref = plain()
+    errs, same = check_routes(label, run_route, ref, BARS[dtype],
+                              pad=lambda y: y.reshape(-1, nbp)[:, nb:],
+                              routes=("rows", "tiled") if routes
+                              else (chosen,))
+    if not same:
+        raise AssertionError(f"{label}: the routes differ")
+    csr = plane_csr(offs, data, nb, nbp, n_in)
+    lib_rel = float(torch.linalg.norm(csr @ x - ref) / torch.linalg.norm(ref))
+    if lib_rel > BARS[dtype]:
+        raise AssertionError(f"{label}: cuSPARSE CSR disagrees: {lib_rel}")
+
+    def library():
+        csr @ x
+
+    if routes:
+        t = time_routes(run_route, chosen, plain, library, flush)
+    else:
+        t = time_all(lambda: run_route(chosen), plain, library, flush)
+    in_range = sum(max(0, nb - abs(d)) for d in offs)
+    t["bound"], t["bound_by"] = bound_ms(
+        data.element_size() * (data.numel() + (n_in + n_out) * nbp),
+        2 * n_out * n_in * in_range, dtype)
+    how = (f"tile {plan.tn}, {plan.n_tiles} tiles on {plan.grid} blocks, "
+           f"{plan.stages} stages, window {plan.window}, {plan.smem_bytes} B "
+           "shared" if plan else "the tiled plan does not fit")
+    times = routes_line(t) if routes else (
+        f"kernel {t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm")
+    print(f"{label} ({len(offs)} offsets {min(offs)}..{max(offs)}): route "
+          f"{chosen} ({how}); rel "
+          + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
+          + f"; max_abs {errs[chosen][1]:.3e} | {times} | plain "
+          f"{t['p_flush']:.4f} / {t['p']:.4f} ms | cuSPARSE CSR "
+          f"{t['lib_flush']:.4f} / {t['lib']:.4f} ms | bound "
+          f"{t['bound']:.4f} ms ({t['bound_by']})", flush=True)
+    return errs[chosen][1], t, chosen
+
+
+def k1_schur_phase(dev, flush) -> dict:
+    """K1 on the Schur tier's forms: S_hat 1x1 on its 65 node offsets at
+    matrix 6 and 8 shapes, both routes, f32 and f64, and on random data
+    nonzero outside the matrix; the other four forms at matrix 8 by the
+    route the wrapper chooses."""
+    phase("K1 on the Schur tier's forms (S_hat on its 65 offsets at matrix "
+          "6 and 8 shapes; the sub-blocks at matrix 8)")
+    rng = np.random.default_rng(2030)
+    summary = {}
+    for mid in (6, 8):
+        t0 = time.perf_counter()
+        prep = schur_prep(mid, dev)
+        nb, nbp = prep.nb, prep.nbp
+        print(f"matrix {mid}: 'sch' prep in float64 "
+              f"{time.perf_counter() - t0:.3f} s; nb={nb} nbp={nbp} node offsets {len(prep.node_offsets)}, "
+              f"S_hat offsets {len(prep.s_offsets)}", flush=True)
+        if len(prep.s_offsets) != 65:
+            raise AssertionError(f"S_hat has {len(prep.s_offsets)} offsets")
+        for form, (offs, planes, n_in) in schur_forms(prep).items():
+            for dtype in BARS:
+                if form != "1x1 S_hat" and (mid != 8
+                                            or dtype != torch.float32):
+                    continue
+                data = planes.to(dtype).contiguous()
+                summary[(mid, form, dtype)] = k1_form(
+                    f"K1 m{mid} {form} {str(dtype)[6:]}", offs, data, n_in,
+                    nb, flush, rng, routes=form == "1x1 S_hat")
+        for dtype, bar in BARS.items():
+            offs = prep.s_offsets
+            data = torch.as_tensor(
+                rng.standard_normal(tuple(prep.s_planes.shape)), dtype=dtype,
+                device=dev)
+            x = torch.as_tensor(rng.standard_normal(nbp), dtype=dtype,
+                                device=dev)
+            ref = pd.spmv_planes_plain(offs, data, x, n_in=1, nb=nb)
+            errs, same = check_routes(
+                f"K1 m{mid} S_hat random data {dtype}",
+                lambda route: pd.spmv_planes_cuda(offs, data, x, n_in=1,
+                                                  nb=nb, route=route),
+                ref, bar, pad=lambda y: y.reshape(-1, nbp)[:, nb:])
+            if not same:
+                raise AssertionError("S_hat random data: the routes differ")
+            print(f"K1 m{mid} S_hat {str(dtype)[6:]}, random data nonzero "
+                  "outside the matrix and in the padding rows: rel "
+                  + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
+                  + ", routes equal bit for bit", flush=True)
+        del prep
+    print("K1 Schur forms: padding rows exactly 0, every call repeated bit "
+          "for bit, S_hat's two routes equal bit for bit")
+    return summary
+
+
 def coop_floor(grid: int, smem: int, barriers, dev) -> dict:
     """Device ms of grid_sync's empty kernel, launched as K3 and K4 are
     (`grid` blocks, `smem` bytes each), per barrier count: the floor of a
@@ -798,6 +982,7 @@ def counters() -> dict:
     return {"K1": pd.kernel_launches,
             "K1 tiled": pd.route_launches["tiled"],
             "K1 rows": pd.route_launches["rows"],
+            "K1 forms": dict(pd.form_launches),
             "K1 plain": pd.plain_calls,
             "K2": dia_ops.kernel_launches,
             "K2 plain": dia_ops.plain_calls,
@@ -988,6 +1173,77 @@ def f64_default_phase():
     return counts["K2"]
 
 
+# Mean GMRES iterations per step of the JAX package on a TPU v5e with the
+# same 'auto' tier (benchlogs/transient_scaling.txt, 12-step means):
+# a comparison band only, 0.5x-2x.
+SCHUR_REF_LIN = {8: 54.5, 9: 72.2, 10: 89.5}
+
+
+def schur_path_phase(matrix_id: int, n_steps: int, argv=(),
+                     lin_band=None, time_forms: bool = True) -> tuple:
+    """`run.main --matrix-id N` at its f32 defaults ('auto' -> the Schur
+    tier): prep 'sch', every apply through K1 (no plain call), Newton <= 3,
+    mean GMRES per step within 0.5x-2x of the JAX package's (or within
+    `lin_band`), peak device memory; then, with `time_forms`, each K1
+    form of the run's own prep checked and timed.  Returns (counts, mean GMRES per step, GMRES
+    iterations of the run)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    extra = " " + " ".join(argv) if argv else ""
+    out, counts = drive(f"Schur tier: run.main --matrix-id {matrix_id}{extra}"
+                        f", float32 defaults, Stokes + {n_steps} steps "
+                        "('sch')", ["--matrix-id", str(matrix_id), *argv],
+                        n_steps)
+    peak = torch.cuda.max_memory_allocated()
+    solver = out.solver
+    kr = solver.cfg.krylov
+    lin = mean_lin(out)
+    ref = SCHUR_REF_LIN[matrix_id]
+    lo, hi = lin_band or (0.5 * ref, 2.0 * ref)
+    print(f"matrix {matrix_id}: {4 * solver.disc.nv} rows; preconditioner "
+          f"{kr.preconditioner}, schur_cheby {kr.schur_cheby}, schur_v_cheby "
+          f"{kr.schur_v_cheby}, shape {kr.schur_shape}, coarse_agg "
+          f"{kr.coarse_agg}, cgs2 {kr.cgs2}; mean GMRES per step {lin:.1f} "
+          f"(band {lo:.1f}-{hi:.1f}; JAX package on TPU v5e: {ref}); peak "
+          f"device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)", flush=True)
+    print("host clock of the Newton operator's 'sch' prep (s): "
+          + ", ".join(f"{k} {v:.3f}"
+                      for k, v in solver._exact_prep.seconds.items()))
+    if solver.prep_kind != "sch" or kr.preconditioner != "schur":
+        raise AssertionError(f"prep {solver.prep_kind}, {kr}")
+    if not lo <= lin <= hi:
+        raise AssertionError(f"mean GMRES/step {lin} outside {lo}-{hi}")
+    if counts["K1"] <= 0 or counts["K2"] or not no_plain_calls(counts):
+        raise AssertionError(f"kernel counts {counts}")
+    gmres = solver.stokes_result.iters + sum(
+        st.lin_iters for _, st, _ in solver.history)
+    if not time_forms:
+        return counts, lin, gmres
+    flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
+                        device=solver.device)
+    rng = np.random.default_rng(2031 + matrix_id)
+    prep = solver._exact_prep
+    for form, (offs, planes, n_in) in schur_forms(prep).items():
+        k1_form(f"K1 m{matrix_id} run's {form} float32", offs, planes, n_in,
+                prep.nb, flush, rng)
+    return counts, lin, gmres
+
+
+def schur_cgs2_phase(lin_xla: float) -> int:
+    """Matrix 8 with `--cgs2 pallas`: K3 on the tier's GMRES path, where
+    V[:k+1] overflows shared memory; one launch per GMRES iteration."""
+    counts, _, gmres = schur_path_phase(
+        8, 2, ["--cgs2", "pallas"], (0.8 * lin_xla, 1.25 * lin_xla),
+        time_forms=False)
+    print(f"K3 launches {counts['K3']} for {gmres} GMRES iterations "
+          f"(Stokes + steps): {counts['K3'] / gmres:.3f} per iteration")
+    if not gmres <= counts["K3"] <= 1.05 * gmres:
+        raise AssertionError(f"{counts['K3']} K3 launches for {gmres} GMRES "
+                             "iterations")
+    return counts["K3"]
+
+
 def golden_phase(dev):
     phase("small-input reference: golden trajectory, float64 on the card")
     spec = importlib.util.spec_from_file_location(
@@ -1012,10 +1268,12 @@ def golden_phase(dev):
         return solver.prep_kind, torch.stack(states).cpu().numpy()
 
     flagship = dict(preconditioner="auto", spmv="plane")
+    schur = dict(preconditioner="schur", spmv="plane", schur_v_cheby=2)
     for mode, kw, bar in (
             ("flagship mode", flagship, 1e-7),
             ("flagship mode, cgs2='pallas' (K3)", dict(flagship,
                                                        cgs2="pallas"), 1e-7),
+            ("the Schur tier forced", schur, 1e-7),
             ("block-Jacobi path", {}, GOLDEN_BJ_BAR)):
         reset_counters()
         kind, states = trajectory(kw)
@@ -1054,14 +1312,55 @@ def bench_phase():
     return counts["K4"]
 
 
-def kernel_entry(name: str, launches: int, abs_err: float, t: dict) -> dict:
+def bench_tools_phase():
+    """The two bench tools of the tier on the card at matrix 8: their lines
+    present, their numbers finite, every apply through K1."""
+    tb_argv = ["--matrix-id", "8", "--preconditioner", "auto", "--steps", "3"]
+    gd_argv = ["--matrix-id", "8", "--skip-slope", "--cgs2", "pallas"]
+    phase("bench tools: transient_bench.main(" + " ".join(tb_argv)
+          + ") and gmres_decomp.main(" + " ".join(gd_argv) + ")")
+    reset_counters()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = transient_bench.main(tb_argv)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    lines = [ln for ln in text.splitlines() if ln.startswith("TRANSIENT ")]
+    r = res[0] if res else {}
+    if len(lines) != 1 or "prep=sch" not in lines[0] or not all(
+            np.isfinite(r.get(k, np.nan)) for k in
+            ("setup_s", "stokes_s", "compile_s", "step_ms", "mean_lin")):
+        raise AssertionError(f"transient_bench: {lines}, {res}")
+    counts = counters()
+    print(f"kernel counts in transient_bench: {counts}")
+    if counts["K1"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"kernel counts {counts}")
+    reset_counters()
+    rows = gmres_decomp.main(gd_argv)
+    counts = counters()
+    print(f"kernel counts in gmres_decomp: {counts}")
+    parts = ("apply_A", "apply_F", "apply_S", "fhat", "shat", "minv",
+             "matvec = minv(A x)")
+    if not all(np.isfinite(rows.get(p, np.nan)) and rows[p] > 0
+               for p in parts) or counts["K1"] <= 0 or counts["K3"] <= 0 \
+            or not no_plain_calls(counts):
+        raise AssertionError(f"gmres_decomp: {rows}, {counts}")
+
+
+def kernel_entry(name: str, launches: int, abs_err: float, t: dict,
+                 entry_name=None, form=None) -> dict:
+    """The summary line's entry of kernel `name` (a key of KERNELS); a
+    second entry of one kernel, for another form, takes `entry_name`."""
     _, source, replaces = KERNELS[name]
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": abs_err, "ms": t["k_flush"],
-            "plain_ms": t["p_flush"], "bound_ms": t["bound"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["lib_flush"]}
+    entry = {"name": entry_name or name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": abs_err, "ms": t["k_flush"],
+             "plain_ms": t["p_flush"], "bound_ms": t["bound"],
+             "bound_by": t["bound_by"],
+             "library_ms": t["lib_flush"]}
+    if form:
+        entry["form"] = form
+    return entry
 
 
 def main() -> int:
@@ -1074,6 +1373,7 @@ def main() -> int:
     k1 = k1_phase(dev, mesh, pat, data64, flush)
     k2 = k2_phase(dev, mesh, pat, data64, flush)
     route_sweep_phase(dev, pat, flush)
+    k1_schur = k1_schur_phase(dev, flush)
     k3 = k3_phase(dev, flush)
     k4 = k4_phase(dev, pat, data64, flush)
     del flush, data64
@@ -1082,14 +1382,27 @@ def main() -> int:
     k2_launches = scalar_path_phase(plane_lin)
     k3_comp_launches = scalar_comp_phase()
     f64_launches = f64_default_phase()
+    sch_counts, sch_lin, _ = schur_path_phase(8, 3)
+    k3_sch_launches = schur_cgs2_phase(sch_lin)
+    schur_path_phase(9, 2)
+    schur_path_phase(10, 1)
     golden_phase(dev)
     k4_launches = bench_phase()
+    bench_tools_phase()
 
     print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
           f"default {f64_launches}; K3 launches: plane path {k3_launches}, "
-          f"'tl' with pallas_comp {k3_comp_launches}")
+          f"'tl' with pallas_comp {k3_comp_launches}, Schur tier at matrix "
+          f"8 {k3_sch_launches}")
+    print("phase wall seconds:")
+    phase_seconds()
+    s_hat = {k: v for k, v in sch_counts["K1 forms"].items() if k[1] == 65}
+    s_err, s_t, _ = k1_schur[(8, "1x1 S_hat", torch.float32)]
     print(json.dumps({"kernels": [
         kernel_entry("plane_spmv", k1_launches, *k1[("4x4", torch.float32)]),
+        kernel_entry("plane_spmv", sum(s_hat.values()), s_err, s_t,
+                     entry_name="plane_spmv_s_hat",
+                     form="S_hat 1x1 on 65 offsets, matrix 8 'sch' path"),
         kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)]),
         kernel_entry("cgs2_project", k3_launches,
                      *k3[(torch.float32, 117_760, 15, False)]),

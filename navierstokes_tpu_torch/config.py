@@ -7,14 +7,18 @@ converts one to one (`convert.config_from_jax`).  Dtypes stay strings;
 The port runs these slices of the JAX package, all with the exact Jacobian
 and the operator-form residual: the two-level preconditioner on the
 component-plane layout ('tlp', spmv='plane') and on the scalar-DIA layout
-('tl', spmv in auto/xla/pallas), block-Jacobi with its Neumann boost ('bj',
-the float64 default), and for both two-level layouts the dense or the
-multilevel coarse level; GMRES orthogonalizes with four GEMVs
-(cgs2='xla') or the fused projection K3 ('pallas', 'pallas_comp' with
-compensated sums).  `check_supported` raises `NotImplementedError`
-for every option outside them, naming the ROADMAP slice that ports it, so
-that no option silently runs something else.  The `'auto'` resolution
-itself is carried over whole, so the tier choice is the JAX package's.
+('tl', spmv in auto/xla/pallas), the pressure-Schur block preconditioner
+on the plane layout ('sch', the f32 'auto' tier above 150k rows),
+block-Jacobi with its Neumann boost ('bj', the float64 default), and for
+both two-level layouts the dense or the multilevel coarse level; GMRES
+orthogonalizes with four GEMVs (cgs2='xla') or the fused projection K3
+('pallas', 'pallas_comp' with compensated sums).  `check_supported`
+raises `NotImplementedError` for every option outside them, naming the
+ROADMAP slice that ports it, so that no option silently runs something
+else.  The `'auto'` resolution itself is carried over whole, so the tier
+choice is the JAX package's; where the tier it chooses cannot take the
+rest of the config, `resolve_supported` raises one `ValueError` that says
+so.
 """
 
 from __future__ import annotations
@@ -198,21 +202,39 @@ def _check_method(sc: SolverConfig) -> None:
                          "'xla', 'pallas' or 'pallas_comp'")
 
 
+def _check_schur(sc: SolverConfig, jacobian: str) -> None:
+    """The JAX model's validation of preconditioner='schur'."""
+    if sc.spmv != "plane":
+        raise ValueError("preconditioner='schur' requires spmv='plane' (the "
+                         "sub-block applies run on the component-plane "
+                         "layout)")
+    if jacobian != "exact":
+        raise ValueError("preconditioner='schur' requires jacobian='exact': "
+                         "the Schur complement and coarse inverses are "
+                         "built on the host at operator preparation")
+    if sc.schur_shape not in ("lower", "full"):
+        raise ValueError(f"unknown schur_shape {sc.schur_shape!r}; expected "
+                         "'lower' or 'full'")
+    if sc.deflation_k:
+        raise ValueError("deflation_k is not supported with preconditioner="
+                         "'schur' (recycling is built on the two-level "
+                         "preps)")
+
+
 def _check_krylov(sc: SolverConfig, nv: int) -> None:
     _check_method(sc)
     p = sc.preconditioner
-    if p == "schur":
-        _not_ported("preconditioner='schur' (the 'auto' tier above 150k "
-                    "rows)", 6, "the Schur tier")
     if p in ("ilu0", "none"):
         _not_ported(f"preconditioner={p!r}", 11,
                     "other preconditioners and solvers")
-    if p not in ("two_level", "block_jacobi"):
+    if p not in ("two_level", "block_jacobi", "schur"):
         raise ValueError(f"unknown preconditioner {p!r}")
     if sc.spmv not in SPMV_CHOICES:
         raise ValueError(f"unknown spmv {sc.spmv!r}; one of {SPMV_CHOICES}")
     if sc.deflation_k:
         _not_ported("deflation_k", 13, "deflation")
+    if sc.deflation_arnoldi:
+        _not_ported("deflation_arnoldi", 13, "deflation")
     if sc.coarse_basis == "linear":
         _not_ported("coarse_basis='linear'", 10, "the coarse variants")
     if sc.coarse_basis != "const":
@@ -231,6 +253,11 @@ def _check_krylov(sc: SolverConfig, nv: int) -> None:
             raise ValueError("coarse_cheby_fraction must be in (0, 1), got "
                              f"{sc.coarse_cheby_fraction}")
     n_agg = -(-nv // sc.coarse_agg)
+    if p == "schur" and 3 * n_agg > sc.coarse_dense_max:
+        raise ValueError("preconditioner='schur' uses dense coarse inverses "
+                         f"(velocity nc={3 * n_agg} > coarse_dense_max="
+                         f"{sc.coarse_dense_max}); raise coarse_agg or "
+                         "coarse_dense_max")
     if p == "two_level" and 4 * n_agg > sc.coarse_dense_max:
         nc2 = 4 * -(-n_agg // second_level_agg(4 * n_agg,
                                                sc.coarse_dense_max))
@@ -247,6 +274,8 @@ def check_supported(cfg: NSConfig, nv: int) -> None:
     As in the JAX package, both the Stokes and the Newton operators are
     prepared from `cfg.krylov`; `cfg.stokes_krylov` only sets the Stokes
     solve's method and tolerances."""
+    if cfg.krylov.preconditioner == "schur":
+        _check_schur(cfg.krylov, cfg.jacobian)
     if cfg.jacobian == "reference":
         _not_ported("jacobian='reference'", 5, "the model main path")
     if cfg.jacobian != "exact":
@@ -259,8 +288,35 @@ def check_supported(cfg: NSConfig, nv: int) -> None:
     _check_method(cfg.stokes_krylov)
 
 
+def _check_auto_tier(user: SolverConfig, resolved: SolverConfig,
+                     nv: int) -> None:
+    """Where 'auto' chose the Schur tier, the knobs the user pinned must
+    fit it: raise one ValueError that names the knob and the tier."""
+    if user.preconditioner != "auto" or resolved.preconditioner != "schur":
+        return
+    tier = (f"preconditioner='auto' chose the Schur tier at {4 * nv} rows "
+            "(above 150,000)")
+    if user.coarse_cheby:
+        raise ValueError(
+            f"{tier}, but coarse_cheby={user.coarse_cheby} is pinned: "
+            "coarse_cheby is the two_level post-smoother, which the Schur "
+            "tier does not run; drop coarse_cheby (the tier's smoothers are "
+            "schur_cheby and schur_v_cheby) or set preconditioner="
+            "'two_level'")
+    n_agg = -(-nv // resolved.coarse_agg)
+    if 3 * n_agg > resolved.coarse_dense_max:
+        raise ValueError(
+            f"{tier}, whose dense velocity coarse inverse needs nc="
+            f"{3 * n_agg} > coarse_dense_max={resolved.coarse_dense_max}: "
+            "'auto' raises coarse_dense_max only up to "
+            f"AUTO_COARSE_DENSE_CAP={AUTO_COARSE_DENSE_CAP}; set "
+            "preconditioner='two_level' (its multilevel coarse level takes "
+            "this size), or a larger coarse_agg or coarse_dense_max")
+
+
 def resolve_supported(cfg: NSConfig, nv: int) -> NSConfig:
     """`resolve_coarse_defaults` for one device, then `check_supported`."""
     resolved = resolve_coarse_defaults(cfg, nv)
+    _check_auto_tier(cfg.krylov, resolved.krylov, nv)
     check_supported(resolved, nv)
     return resolved

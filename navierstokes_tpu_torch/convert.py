@@ -57,13 +57,43 @@ def _coarse_space(cs) -> CoarseSpace:
                        nb=int(cs.nb))
 
 
+def _schur_prep(prep, device):
+    """The JAX ("sch", noffs, p4, arrays, (cs, SchurStatic), nb, nbp)
+    tuple -> `SchurPrep`: tiled plane stacks through `planes_from_tiled`,
+    the rest as it is."""
+    from navierstokes_tpu_torch.model.navier_stokes import SchurPrep
+
+    _, noffs, p4, arrays, (cs, ss), nb, nbp = prep
+    p_f, p_b, p_g, d9, s_tiled, s_dinv, vc_inv, sc_inv = arrays
+
+    def planes(tiled):
+        return None if tiled is None else _tensor(planes_from_tiled(tiled),
+                                                  device)
+
+    out = SchurPrep(
+        tuple(int(d) for d in noffs), planes(p4), planes(p_f), planes(p_b),
+        planes(p_g), _tensor(d9, device), tuple(int(d) for d in ss.s_offsets),
+        planes(s_tiled), _tensor(s_dinv, device), _tensor(vc_inv, device),
+        _tensor(sc_inv, device), _coarse_space(cs),
+        None if ss.cheby_v is None else tuple(ss.cheby_v),
+        None if ss.cheby_s is None else tuple(ss.cheby_s), ss.shape,
+        int(nb), int(nbp))
+    if out.p4.shape[-1] != out.nbp:
+        raise ValueError(f"tiled planes hold {out.p4.shape[-1]} rows, "
+                         f"nbp={out.nbp}")
+    return out
+
+
 def prep_from_jax(prep, device="cpu"):
-    """A JAX-package prepared scalar-DIA tuple -> the port's prep.
+    """A JAX-package prepared tuple -> the port's prep.
 
     'bj': ("bj", s_offsets, s_data, invd_offsets, invd_data);
     'tl': ("tl", offsets, data, invd_offsets, invd_data, c_arrays,
     c_static[, cheby]) with c_static ("dense", cs) or ("ml", cs, c_off,
-    cs2).  Pretiled (3-D) data is not taken: prepare it off the TPU."""
+    cs2); 'sch': ("sch", noffs, p4, arrays, (cs, SchurStatic), nb, nbp),
+    whose tile-major plane stacks are carried into the plane-major layout.
+    Pretiled scalar-DIA (3-D) data is not taken: prepare it off the
+    TPU."""
     from navierstokes_tpu_torch.model.navier_stokes import (
         BlockJacobiPrep,
         DenseCoarse,
@@ -72,13 +102,16 @@ def prep_from_jax(prep, device="cpu"):
     )
 
     kind = prep[0]
+    if kind == "sch":
+        return _schur_prep(prep, device)
     if np.ndim(prep[2]) != 2:
         raise ValueError("prep_from_jax takes row-major (K, n) DIA data")
     if kind == "bj":
         return BlockJacobiPrep(tuple(prep[1]), _tensor(prep[2], device),
                                _tensor(prep[4], device))
     if kind != "tl":
-        raise ValueError(f"prep_from_jax takes 'bj' or 'tl', got {kind!r}")
+        raise ValueError(f"prep_from_jax takes 'bj', 'tl' or 'sch', got "
+                         f"{kind!r}")
     c_arrays, c_static = prep[5], prep[6]
     if c_static[0] == "dense":
         coarse = DenseCoarse(_tensor(c_arrays[0], device))

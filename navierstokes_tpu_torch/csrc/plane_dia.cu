@@ -5,9 +5,10 @@
 //
 //     y_a[i] = sum_{iD, b}  data[a, iD*n_in + b, i] * x_b[i + D[iD]]
 //
-// for a < n_out, b < n_in, over the N_D node offsets D, with the terms in
-// `plane_terms` order (j = iD*n_in + b).  Layout: data (n_out, n_in*N_D, nbp),
-// x (n_in, nbp) and y (n_out, nbp), all plane-major and contiguous.
+// for a < n_out, b < n_in, over the N_D <= 128 node offsets D, with the
+// terms in `plane_terms` order (j = iD*n_in + b).  Layout: data (n_out,
+// n_in*N_D, nbp), x (n_in, nbp) and y (n_out, nbp), all plane-major and
+// contiguous.
 //
 // What bounds it: bytes.  Each operator value is read once and used for one
 // multiply-add, 2 flops per 4 bytes in f32: 0.5 flop per operator byte, far
@@ -52,7 +53,9 @@ namespace {
 
 using band_ring::Accum;
 
-constexpr int kMaxOffsets = 32;
+// Node offsets a launch takes: the 15 of the 4x4 operator, and the 65 of the
+// Schur complement S_hat, whose band is the sumset of the node offsets.
+constexpr int kMaxOffsets = 128;
 constexpr int kMaxPlanes = 4;
 constexpr int kThreads = 128;   // row-per-thread route
 constexpr int kMaxTile = 256;   // tiled route: rows (= consumer threads)

@@ -17,6 +17,11 @@ The ported paths are the single-device paths of the JAX package's
     operator apply through kernel K1 (`ops/plane_dia.py`);
   - 'tl' (`ScalarTwoLevelPrep`): the same two-level cycle on the
     scalar-DIA layout (spmv auto/xla/pallas);
+  - 'sch' (`SchurPrep`): the pressure-Schur block preconditioner on the
+    plane layout (the f32 'auto' tier above 150k rows): F_hat and S_hat
+    two-grid cycles, every sub-block apply (4x4, F 3x3, A_pu 1x3, A_up
+    3x1, S_hat 1x1 on the sumset of the node offsets) through K1, the
+    host algebra in `solvers/schur.py`;
   - 'bj' (`BlockJacobiPrep`): block-Jacobi folded into the operator,
     S = D^{-1} A, with the Neumann boost (the float64 default).
 
@@ -62,8 +67,10 @@ from navierstokes_tpu_torch.ops.plane_dia import (
     node_offsets_from_scalar,
     plane_nbp,
     spmv_plane,
+    spmv_planes,
     to_planes,
 )
+from navierstokes_tpu_torch.solvers import schur as sch
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
     build_aggregates,
@@ -165,7 +172,37 @@ class BlockJacobiPrep:
     invd: torch.Tensor          # (7, ndof)
 
 
-Prep = Union[PlanePrep, ScalarTwoLevelPrep, BlockJacobiPrep]
+@dataclasses.dataclass
+class SchurPrep:
+    """A prepared pressure-Schur block preconditioner on the plane layout
+    (the JAX package's 'sch' prep): the operator planes and the sub-block
+    planes for K1, the plane-form diag(F)^{-1}, S_hat and its diagonal
+    inverse, the two dense coarse inverses and the smoother intervals."""
+
+    kind = "sch"
+    node_offsets: tuple
+    p4: torch.Tensor            # (4, 4 * N_D, nbp) operator planes
+    p_f: torch.Tensor           # (3, 3 * N_D, nbp) F
+    p_b: torch.Tensor           # (1, 3 * N_D, nbp) A_pu = -B
+    p_g: Optional[torch.Tensor]  # (3, N_D, nbp) A_up = B^T ('full' only)
+    d9: torch.Tensor            # (9, nbp): row 3a+b is diag(F)^{-1}[:, a, b]
+    s_offsets: tuple            # node offsets of S_hat (sumset band)
+    s_planes: torch.Tensor      # (1, N_S, nbp) S_hat
+    s_dinv: torch.Tensor        # (nbp,) 1 / diag(S_hat)
+    vc_inv: torch.Tensor        # (3 n_agg, 3 n_agg) velocity coarse inverse
+    sc_inv: torch.Tensor        # (n_agg, n_agg) S_hat coarse inverse
+    cs: CoarseSpace
+    cheby_v: Optional[tuple]    # (theta, delta, degree) or None: one Jacobi
+    cheby_s: Optional[tuple]
+    shape: str                  # 'lower' | 'full'
+    nb: int
+    nbp: int
+    # host-clock seconds of the preparation's stages (empty when carried
+    # over from the JAX package)
+    seconds: dict = dataclasses.field(default_factory=dict)
+
+
+Prep = Union[PlanePrep, ScalarTwoLevelPrep, SchurPrep, BlockJacobiPrep]
 
 
 def _sync(device: torch.device) -> None:
@@ -203,7 +240,8 @@ class NavierStokesSolver:
         kr = self.cfg.krylov
         self._coarse_space = build_aggregates(nb, kr.coarse_agg)
         self._coarse_l2 = None          # (offsets, CoarseSpace), built once
-        self._plane = kr.preconditioner == "two_level" and kr.spmv == "plane"
+        self._plane = kr.spmv == "plane" and \
+            kr.preconditioner in ("two_level", "schur")
         if self._plane:
             self._nbp = plane_nbp(nb, self._coarse_space.nb_pad)
             self._noffs = node_offsets_from_scalar(
@@ -214,10 +252,13 @@ class NavierStokesSolver:
 
     @property
     def prep_kind(self) -> str:
-        """The prepared-operator kind this config builds: 'tlp', 'tl' or
-        'bj'."""
-        if self.cfg.krylov.preconditioner == "block_jacobi":
+        """The prepared-operator kind this config builds: 'tlp', 'tl',
+        'sch' or 'bj'."""
+        p = self.cfg.krylov.preconditioner
+        if p == "block_jacobi":
             return BlockJacobiPrep.kind
+        if p == "schur":
+            return SchurPrep.kind
         return PlanePrep.kind if self._plane else ScalarTwoLevelPrep.kind
 
     # -- assembly and operator preparation -----------------------------------
@@ -240,10 +281,11 @@ class NavierStokesSolver:
         self._exact_prep = prep
         mass = self._assemble_dia(frozenset({"mass_dt_bare"}),
                                   self.cfg.reynolds)
-        # The residual operator differs from the prepared two-level one
-        # only in BC rows, which check() masks out of F: share it.  The
-        # block-Jacobi S is pre-scaled by D^{-1}, so 'bj' keeps its own.
-        if isinstance(prep, PlanePrep):
+        # The residual operator differs from the prepared two-level (or
+        # Schur) one only in BC rows, which check() masks out of F: share
+        # it.  The block-Jacobi S is pre-scaled by D^{-1}, so 'bj' keeps
+        # its own.
+        if isinstance(prep, (PlanePrep, SchurPrep)):
             self._res_A = prep.p4
             self._res_M = extract_planes(offs, mass, self.disc.nv,
                                          node_offsets=self._noffs,
@@ -254,10 +296,21 @@ class NavierStokesSolver:
             self._res_M = mass
         self._prepared = True
 
+    def release_assembly_buffers(self) -> None:
+        """Free the assembly-time device tensors (element geometry and the
+        element scatter map: ~7 GB at matrix 10).  With the exact Jacobian
+        and the operator residual every step works off the prepared
+        operators alone; call after `stokes_init`, which assembles."""
+        self._ensure_prepared()
+        d = self.disc
+        d.tets = d.vol = d.grad = d.h = d.dia_elem_map = None
+
     def _prepare_operator_dia(self, dia_data: torch.Tensor) -> Prep:
         """BC-applied DIA data -> the prep of the configured kind."""
-        d = self.disc
         cfgk = self.cfg.krylov
+        if cfgk.preconditioner == "schur":
+            return self._prepare_operator_schur(dia_data)
+        d = self.disc
         offsets = d.dia_pattern.offsets
         nb = d.nv
         inv_diag = block4_inverse(diag_blocks_from_dia(offsets, dia_data, nb),
@@ -281,6 +334,95 @@ class NavierStokesSolver:
                                       block_diag_to_dia(inv_diag).data,
                                       coarse, cs)
         return self._maybe_append_cheby(prep)
+
+    def _prepare_operator_schur(self, dia_data: torch.Tensor) -> SchurPrep:
+        """BC-applied DIA data -> the 'sch' prep.
+
+        The data comes to the host once; the 3x3 diag(F)^{-1}, S_hat =
+        D + B diag(F)^{-1} B^T, the two dense coarse inverses and the
+        Chebyshev intervals are built there in float64
+        (`solvers/schur.py`), as in the JAX package.  The device half is
+        plane stacks for K1: the 4x4 operator p4 (the GMRES matvec and the
+        residual), F (3x3), A_pu = -B (1x3), A_up = B^T (3x1, 'full'
+        only) and S_hat (1x1 on its own offsets)."""
+        cfgk = self.cfg.krylov
+        offsets = self.disc.dia_pattern.offsets
+        nb, nbp, noffs = self.disc.nv, self._nbp, self._noffs
+        cs = self._coarse_space
+        dtype, dev = self.dtype, self.device
+
+        def planes(host: np.ndarray) -> torch.Tensor:
+            """Host (n_out, NT, nb) -> device (n_out, NT, nbp)."""
+            out = torch.zeros(host.shape[:-1] + (nbp,), dtype=dtype,
+                              device=dev)
+            out[..., :nb] = torch.as_tensor(host).to(dev, dtype)
+            return out
+
+        def padded(host: np.ndarray) -> torch.Tensor:
+            """Host (..., nb) -> device (..., nbp), zero rows nb..nbp."""
+            pad = [(0, 0)] * (host.ndim - 1) + [(0, nbp - nb)]
+            return torch.as_tensor(np.pad(host, pad)).to(dev, dtype)
+
+        seconds = {}
+        last = time.perf_counter()
+
+        def lap(stage: str) -> None:
+            nonlocal last
+            now = time.perf_counter()
+            seconds[stage], last = now - last, now
+
+        p4 = extract_planes(offsets, dia_data, nb, node_offsets=noffs,
+                            nbp=nbp)
+        dd = dia_data.cpu().numpy()
+        lap("operator planes, data to the host")
+        a_blk = sch.split_blocks(offsets, dd, nb, noffs)
+        fd_inv = sch.diag_f_inverse(a_blk, noffs)
+        lap("block view, diag(F)^-1")
+
+        # Sub-block planes in `plane_terms` order, term j = iD * n_in + b:
+        # F[a, j] = A_blk[iD, :, a, b] and A_pu[0, j] = A_blk[iD, :, 3, b]
+        # (n_in = 3), A_up[a, iD] = A_blk[iD, :, a, 3] (n_in = 1).
+        n_d = len(noffs)
+        pf = a_blk[:, :, :3, :3].transpose(2, 0, 3, 1).reshape(3, 3 * n_d, nb)
+        pb = a_blk[:, :, 3, :3].transpose(0, 2, 1).reshape(1, 3 * n_d, nb)
+        p_g = None
+        if cfgk.schur_shape == "full":
+            p_g = planes(a_blk[:, :, :3, 3].transpose(2, 0, 1))
+        # (nb, 3, 3) -> (9, nbp): row 3a+b holds diag(F)^{-1}[:, a, b]
+        d9 = padded(fd_inv.transpose(1, 2, 0).reshape(9, nb))
+        lap("sub-block planes")
+
+        s_offs, s_np = sch.build_schur_dia(a_blk, noffs, nb, fd_inv)
+        sd = s_np[s_offs.index(0)].copy()
+        sd[sd == 0.0] = 1.0
+        sdinv = 1.0 / sd
+        lap("S_hat")
+        vc_inv = sch.velocity_coarse_inverse(cs, a_blk, noffs,
+                                             shift=cfgk.coarse_shift)
+        sc_inv = sch.scalar_coarse_inverse(cs, s_offs, s_np,
+                                           shift=cfgk.coarse_shift)
+        lap("coarse inverses")
+
+        def interval(lmax: float, deg: int) -> tuple:
+            a, b = cfgk.coarse_cheby_fraction * lmax, 1.05 * lmax
+            return (float((a + b) / 2), float((b - a) / 2), int(deg))
+
+        cheby_s = cheby_v = None
+        if cfgk.schur_cheby:
+            cheby_s = interval(sch.power_lmax_schur(s_offs, s_np, sdinv),
+                               cfgk.schur_cheby)
+        if cfgk.schur_v_cheby:
+            cheby_v = interval(sch.power_lmax_velocity(a_blk, noffs, fd_inv),
+                               cfgk.schur_v_cheby)
+        lap("power iterations")
+        prep = SchurPrep(
+            noffs, p4, planes(pf), planes(pb), p_g, d9, s_offs,
+            planes(s_np[None]), padded(sdinv),
+            torch.as_tensor(vc_inv).to(dev, dtype),
+            torch.as_tensor(sc_inv).to(dev, dtype), cs, cheby_v, cheby_s,
+            cfgk.schur_shape, nb, nbp, seconds)
+        lap("to the device")
+        return prep
 
     def _prepare_coarse(self, offsets: tuple,
                         dia_data: torch.Tensor) -> Coarse:
@@ -404,9 +546,12 @@ class NavierStokesSolver:
         """Prep -> (matvec, b_prep, parts): the left-preconditioned operator
         GMRES iterates, the map of the raw right-hand side to the
         preconditioned one, and the component applies (apply_A and
-        apply_Dinv feed the smoother's lmax estimate)."""
+        apply_Dinv feed the smoother's lmax estimate; `bench/gmres_decomp`
+        times every entry)."""
         if isinstance(prep, BlockJacobiPrep):
             return self._bj_operators(prep)
+        if isinstance(prep, SchurPrep):
+            return self._schur_operators(prep)
         if isinstance(prep, PlanePrep):
             noffs, p4, nb, nbp, cs = (prep.node_offsets, prep.p4, prep.nb,
                                       prep.nbp, prep.cs)
@@ -450,7 +595,69 @@ class NavierStokesSolver:
         def matvec(x):
             return minv(apply_A(x))
 
-        return matvec, minv, {"apply_A": apply_A, "apply_Dinv": apply_Dinv}
+        def coarse(r):
+            return from_coarse(coarse_solve(to_coarse(r)))
+
+        return matvec, minv, {"apply_A": apply_A, "apply_Dinv": apply_Dinv,
+                              "coarse": coarse, "minv": minv}
+
+    def _schur_operators(self, prep: SchurPrep):
+        """'sch': GMRES on M^{-1} A with M the block lower-triangular
+        [[F_hat, 0], [A_pu, S_hat]] (A_pu = -B); schur_shape='full' adds
+        the A_up = B^T back-substitution.  F_hat and S_hat are two-grid
+        cycles: the dense coarse GEMV, then the smoother.  Every sub-block
+        apply is one K1 launch."""
+        noffs, nb, nbp, cs = prep.node_offsets, prep.nb, prep.nbp, prep.cs
+        d9 = prep.d9.reshape(3, 3, nbp)
+
+        def apply_A(x):
+            return spmv_plane(noffs, prep.p4, x, nb=nb)
+
+        def apply_F(xu):
+            return spmv_planes(noffs, prep.p_f, xu, n_in=3, nb=nb)
+
+        def apply_pu(xu):
+            return spmv_planes(noffs, prep.p_b, xu, n_in=3, nb=nb)
+
+        def apply_S(xp):
+            return spmv_planes(prep.s_offsets, prep.s_planes, xp, n_in=1,
+                               nb=nb)
+
+        def dinv_f(ru):
+            # the 3x3 block-diagonal inverse: 9 elementwise plane multiplies
+            return (d9 * ru.reshape(1, 3, nbp)).sum(1).reshape(-1)
+
+        def dinv_s(rp):
+            return prep.s_dinv * rp
+
+        smooth_v = self._make_smoother(apply_F, dinv_f, prep.cheby_v)
+        smooth_s = self._make_smoother(apply_S, dinv_s, prep.cheby_s)
+
+        def fhat(ru):
+            zc = prep.vc_inv @ sch.restrict_planes_n(cs, ru, nbp, 3)
+            z = sch.prolong_planes_n(cs, zc, nbp, nb, 3)
+            return z + smooth_v(ru - apply_F(z))
+
+        def shat(rp):
+            zc = prep.sc_inv @ sch.restrict_planes_n(cs, rp, nbp, 1)
+            z = sch.prolong_planes_n(cs, zc, nbp, nb, 1)
+            return z + smooth_s(rp - apply_S(z))
+
+        def minv(r):
+            r2 = r.reshape(4, nbp)
+            zu = fhat(r2[:3].reshape(-1))
+            zp = shat(r2[3] - apply_pu(zu))
+            if prep.shape == "full":
+                zu = zu - fhat(spmv_planes(noffs, prep.p_g, zp, n_in=1,
+                                           nb=nb))
+            return torch.cat([zu, zp])
+
+        def matvec(x):
+            return minv(apply_A(x))
+
+        return matvec, minv, {"apply_A": apply_A, "apply_F": apply_F,
+                              "apply_S": apply_S, "fhat": fhat,
+                              "shat": shat, "minv": minv}
 
     def _bj_operators(self, prep: BlockJacobiPrep):
         """'bj': GMRES on the Neumann-boosted S = D^{-1} A; each term of
@@ -481,7 +688,7 @@ class NavierStokesSolver:
         """Left-preconditioned GMRES.  On the plane layout the Krylov space
         lives in plane-major vectors, converted in and out once per
         solve."""
-        if not isinstance(prep, PlanePrep):
+        if not isinstance(prep, (PlanePrep, SchurPrep)):
             return self._solve_prepared_raw(prep, rhs, solver_cfg)
         res = self._solve_prepared_raw(
             prep, to_planes(rhs, prep.nb, prep.nbp), solver_cfg)

@@ -104,3 +104,9 @@ def load(name: str) -> tuple:
         info = build(name)
         _loaded[name] = (ctypes.CDLL(str(info.path)), info)
     return _loaded[name]
+
+
+def nvcc_seconds() -> float:
+    """Seconds this process has spent in nvcc (0 where every library was
+    built already)."""
+    return sum(info.seconds for _, info in _loaded.values())

@@ -30,14 +30,15 @@ import torch
 from navierstokes_tpu_torch.ops import band_ring, cuda_lib
 
 PAD = 128   # nbp granularity: whole 128-thread kernel blocks, aligned rows
-MAX_OFFSETS = 32          # kMaxOffsets of csrc/plane_dia.cu
+MAX_OFFSETS = 128         # kMaxOffsets of csrc/plane_dia.cu
 MAX_TILE = 256            # kMaxTile: rows of a tile, one consumer thread each
 ROUTES = ("tiled", "rows")
 
-# Plain integer counters: K1 launches (all, and by route), and calls of the
-# plain version.
+# Plain integer counters: K1 launches (all, by route, and by form: "n_out x
+# n_in", number of node offsets, route), and calls of the plain version.
 kernel_launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
+form_launches: dict = {}
 plain_calls = 0
 
 
@@ -47,6 +48,7 @@ def reset_counters() -> None:
     plain_calls = 0
     for route in ROUTES:
         route_launches[route] = 0
+    form_launches.clear()
 
 
 def node_offsets_from_scalar(offsets: tuple) -> tuple:
@@ -298,6 +300,8 @@ def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
         raise RuntimeError(f"K1 launch failed ({route}): cudaError {rc}")
     kernel_launches += 1
     route_launches[route] += 1
+    form = (f"{n_out}x{n_in}", len(node_offsets), route)
+    form_launches[form] = form_launches.get(form, 0) + 1
     return y
 
 

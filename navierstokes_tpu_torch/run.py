@@ -5,15 +5,18 @@
         --t-final 1.0 --delta 0.05 --save --save-dir res
     python -m navierstokes_tpu_torch.run --matrix-id 6 --spmv pallas --steps 5
     python -m navierstokes_tpu_torch.run --matrix-id 6 --cgs2 pallas --steps 5
+    python -m navierstokes_tpu_torch.run --matrix-id 9 --steps 5
     python -m navierstokes_tpu_torch.run --nx 4 --ny 2 --nz 2 --steps 2 \
         --device cpu
 
 Runs on one device (`--device`, default `cuda`; `cpu` runs the kernels'
 plain PyTorch versions).  As in the JAX CLI, `--dtype` defaults to float32
 on the card and float64 on the CPU.  float32 is the flagship
-configuration: the measured Newton tolerances and `default_f32_krylov()`.
-float64 takes the JAX CLI's float64 defaults: `SolverConfig()`, which is
-block-Jacobi with a Neumann-2 boost on the scalar-DIA layout.  The Krylov
+configuration: the measured Newton tolerances and `default_f32_krylov()`,
+whose 'auto' preconditioner takes the Schur tier above 150k rows
+(matrices 7-10).  float64 takes the JAX CLI's float64 defaults:
+`SolverConfig()`, which is block-Jacobi with a Neumann-2 boost on the
+scalar-DIA layout.  The Krylov
 flags override both the Newton and the Stokes solver configs.  Per-step
 output mirrors the reference Newton monitor; `--save` writes PETSc-ASCII
 `solution_stepNNNN.dat` files byte-compatible with the golden corpus.
@@ -31,8 +34,9 @@ import torch
 
 def default_f32_krylov():
     """The flagship f32 Krylov defaults: 'auto' preconditioner (two-level
-    with a degree-3 Chebyshev smoother up to 150k rows) on the plane layout,
-    coarse_agg from the measured size schedule."""
+    with a degree-3 Chebyshev smoother up to 150k rows, the pressure-Schur
+    tier with a degree-2 Chebyshev velocity smoother above) on the plane
+    layout, coarse_agg from the measured size schedule."""
     from navierstokes_tpu_torch.config import SolverConfig
 
     return SolverConfig(rtol=1e-5, atol=1e-6, maxiter=1000,
@@ -56,13 +60,22 @@ class RunOutput:
 # CLI flags that override SolverConfig fields of the same name.
 _KRYLOV_FLAGS = ("spmv", "preconditioner", "neumann_order", "coarse_agg",
                  "coarse_ml_smooth", "coarse_ml_cycles", "coarse_ml_damp",
-                 "coarse_cheby", "coarse_cheby_fraction", "restart", "cgs2")
+                 "coarse_smooth_omega", "coarse_basis", "coarse_cheby",
+                 "coarse_cheby_fraction", "schur_cheby", "schur_v_cheby",
+                 "schur_shape", "restart", "cgs2")
 
+# Flags of the JAX CLI whose slices are not ported: set, they raise.
 _NOT_PORTED = {
     "msh": ("--msh (Gmsh meshes)", 1, "config and host layer"),
     "vtu": ("--vtu", 7, "I/O and the full CLI"),
     "checkpoint": ("--checkpoint", 7, "I/O and the full CLI"),
+    "checkpoint_every": ("--checkpoint-every", 7, "I/O and the full CLI"),
     "resume": ("--resume", 7, "I/O and the full CLI"),
+    "profile": ("--profile", 7, "I/O and the full CLI"),
+    "deflation_k": ("--deflation-k", 13, "deflation"),
+    "deflation_arnoldi": ("--deflation-arnoldi", 13, "deflation"),
+    "ca_gmres": ("--ca-gmres", 12, "CA-GMRES"),
+    "ca_basis": ("--ca-basis", 12, "CA-GMRES"),
 }
 
 
@@ -88,6 +101,8 @@ def main(argv=None) -> Optional[RunOutput]:
     p.add_argument("--save-every", type=int, default=1)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    p.add_argument("--cpu", action="store_true",
+                   help="the JAX CLI's flag: the same as --device cpu")
     # Krylov knobs, applied to both the Newton and the Stokes solver.
     p.add_argument("--spmv", choices=["auto", "xla", "pallas", "plane"],
                    default=None,
@@ -99,7 +114,7 @@ def main(argv=None) -> Optional[RunOutput]:
                    choices=["auto", "block_jacobi", "two_level", "schur",
                             "ilu0", "none"],
                    help="auto (the f32 default) = two_level + coarse_cheby=3 "
-                        "up to 150k rows, schur above (not ported)")
+                        "up to 150k rows, schur + schur_v_cheby=2 above")
     p.add_argument("--neumann-order", type=int, default=None,
                    help="Neumann-series boost of block-Jacobi")
     p.add_argument("--coarse-agg", type=int, default=None,
@@ -110,12 +125,28 @@ def main(argv=None) -> Optional[RunOutput]:
                    help="multilevel coarse: two-grid cycles per apply")
     p.add_argument("--coarse-ml-damp", type=float, default=None,
                    help="damping of the level-1 Jacobi sweeps")
+    p.add_argument("--coarse-smooth-omega", type=float, default=None,
+                   help="smoothed-aggregation prolongator damping (not "
+                        "ported: slice 10)")
+    p.add_argument("--coarse-basis", default=None,
+                   choices=["const", "linear"],
+                   help="coarse basis per aggregate (linear is not ported: "
+                        "slice 10)")
     p.add_argument("--coarse-cheby", type=int, default=None,
                    help="two_level post-smoother: degree-d Chebyshev sweep "
                         "in D^{-1}A (0 = one Jacobi application)")
     p.add_argument("--coarse-cheby-fraction", type=float, default=None,
                    help="lower end of the Chebyshev interval as a fraction "
                         "of lmax")
+    p.add_argument("--schur-cheby", type=int, default=None,
+                   help="schur: Chebyshev degree of the S_hat smoother "
+                        "(0 = one Jacobi application)")
+    p.add_argument("--schur-v-cheby", type=int, default=None,
+                   help="schur: Chebyshev degree of the velocity smoother "
+                        "(0 = one block-Jacobi application)")
+    p.add_argument("--schur-shape", default=None, choices=["lower", "full"],
+                   help="schur: block-triangular shape (full adds the B^T "
+                        "velocity correction)")
     p.add_argument("--restart", type=int, default=None,
                    help="GMRES restart length")
     p.add_argument("--cgs2", default=None,
@@ -130,6 +161,16 @@ def main(argv=None) -> Optional[RunOutput]:
     p.add_argument("--resume", default=None, help="(not ported)")
     p.add_argument("--devices", type=int, default=0,
                    help=">1: distributed solver (not ported)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="(not ported)")
+    p.add_argument("--profile", action="store_true", help="(not ported)")
+    p.add_argument("--deflation-k", type=int, default=None,
+                   help="(not ported)")
+    p.add_argument("--deflation-arnoldi", type=int, default=None,
+                   help="(not ported)")
+    p.add_argument("--ca-gmres", action="store_true", help="(not ported)")
+    p.add_argument("--ca-basis", default=None,
+                   choices=["monomial", "newton"], help="(not ported)")
     args = p.parse_args(argv)
 
     for name, (what, slice_no, title) in _NOT_PORTED.items():
@@ -153,7 +194,7 @@ def main(argv=None) -> Optional[RunOutput]:
     )
     from navierstokes_tpu_torch.model import NavierStokesSolver
 
-    device = torch.device(args.device)
+    device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda but no CUDA device is available "
                 "(pass --device cpu to run on the CPU)")

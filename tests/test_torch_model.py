@@ -17,6 +17,7 @@ import torch
 from navierstokes_tpu.config import NewtonConfig as JNewton
 from navierstokes_tpu.config import NSConfig as JNS
 from navierstokes_tpu.config import SolverConfig as JSolver
+from navierstokes_tpu.config import resolve_coarse_defaults as j_resolve
 from navierstokes_tpu.io.dat import write_petsc_vec as j_write
 from navierstokes_tpu.mesh import channel_mesh as j_channel
 from navierstokes_tpu.model import NavierStokesSolver as JSolverModel
@@ -274,18 +275,65 @@ def test_solver_turns_tf32_off():
     assert not torch.backends.cudnn.allow_tf32
 
 
-def test_solver_rejects_schur():
-    cfg = NSConfig(krylov=SolverConfig(preconditioner="schur", spmv="plane"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        NavierStokesSolver(channel_mesh(2, 1, 1), cfg, device=CPU)
+@pytest.mark.parametrize("cfg_kw,krylov_kw,match", [
+    ({}, dict(spmv="auto"), "spmv='plane'"),
+    (dict(jacobian="reference"), dict(spmv="plane"), "jacobian='exact'"),
+    ({}, dict(spmv="plane", schur_shape="upper"), "schur_shape"),
+    ({}, dict(spmv="plane", deflation_k=4), "deflation_k"),
+    ({}, dict(spmv="plane", coarse_agg=1, coarse_dense_max=64),
+     "dense coarse"),
+])
+def test_solver_rejects_schur(cfg_kw, krylov_kw, match):
+    """preconditioner='schur' runs (tests/test_torch_schur.py); what the
+    JAX model refuses with it, the port refuses at resolution with the
+    same ValueError: another layout than 'plane', another Jacobian than
+    'exact', an unknown shape, deflation, and a velocity coarse space over
+    coarse_dense_max (3 * 45 > 64 here)."""
+    cfg = NSConfig(krylov=SolverConfig(preconditioner="schur", **krylov_kw),
+                   **cfg_kw)
+    with pytest.raises(ValueError, match=match):
+        NavierStokesSolver(channel_mesh(4, 2, 2), cfg, device=CPU)
 
 
 def test_auto_above_150k_rows_not_ported():
-    """'auto' at nv = 40,000 (160k rows) resolves to the Schur tier."""
+    """'auto' at nv = 40,000 (160k rows) resolves to the Schur tier, ported
+    since slice 6: schur + schur_v_cheby=2, as in the JAX package; up to
+    150k rows it stays two_level + coarse_cheby=3."""
     cfg = NSConfig(krylov=SolverConfig(preconditioner="auto", spmv="plane"))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    kr = resolve_supported(cfg, 40_000).krylov
+    assert (kr.preconditioner, kr.schur_v_cheby, kr.schur_cheby,
+            kr.coarse_agg) == ("schur", 2, 2, 128)
+    jkr = j_resolve(JNS(krylov=JSolver(preconditioner="auto", spmv="plane")),
+                    40_000).krylov
+    assert dataclasses.asdict(jkr) == dataclasses.asdict(kr)
+    low = resolve_supported(cfg, 37_500).krylov
+    assert low.preconditioner == "two_level" and low.coarse_cheby == 3
+
+
+def test_auto_schur_tier_with_pinned_coarse_cheby_raises():
+    """A pinned coarse_cheby > 0 where 'auto' chooses the Schur tier raises
+    one ValueError at resolution that names the knob and the tier; the same
+    config below 150k rows runs two_level with the pinned degree."""
+    cfg = NSConfig(krylov=SolverConfig(preconditioner="auto", spmv="plane",
+                                       coarse_cheby=2))
+    with pytest.raises(ValueError, match=r"coarse_cheby=2.*Schur tier|"
+                                         r"Schur tier.*coarse_cheby=2"):
         resolve_supported(cfg, 40_000)
-    assert resolve_supported(cfg, 37_500).krylov.coarse_cheby == 3
+    assert resolve_supported(cfg, 37_500).krylov.coarse_cheby == 2
+
+
+def test_auto_schur_tier_above_the_dense_cap_raises():
+    """Above ~4.19M DoF 'auto' still chooses the Schur tier, but its dense
+    velocity coarse inverse outgrows what 'auto' may raise
+    coarse_dense_max to: one ValueError at resolution naming
+    AUTO_COARSE_DENSE_CAP, not a failure deep in the prep.  Matrix 10's
+    size (587,248 nodes) resolves."""
+    cfg = NSConfig(krylov=SolverConfig(preconditioner="auto", spmv="plane"))
+    with pytest.raises(ValueError, match="AUTO_COARSE_DENSE_CAP"):
+        resolve_supported(cfg, 1_100_000)
+    kr = resolve_supported(cfg, 587_248).krylov
+    assert kr.preconditioner == "schur" and kr.coarse_agg == 256
+    assert 3 * -(-587_248 // 256) <= kr.coarse_dense_max
 
 
 @pytest.mark.parametrize("cfg_kw,krylov_kw,slice_no", [
@@ -316,6 +364,7 @@ def test_options_outside_the_slice_raise(cfg_kw, krylov_kw, slice_no):
     (dict(preconditioner="two_level", spmv="auto", cgs2="pallas_comp"),
      "tl"),
     (dict(_PLANE, cgs2="pallas"), "tlp"),
+    (dict(preconditioner="schur", spmv="plane", schur_v_cheby=2), "sch"),
 ])
 def test_options_now_in_the_slice_run(krylov_kw, kind):
     """Options the scalar-DIA slice and the fused-CGS2 slice brought in:
@@ -354,10 +403,38 @@ def test_stokes_krylov_only_sets_the_solve():
     (["--nx", "2", "--checkpoint", "ck.npz"], 7),
     (["--nx", "2", "--resume", "ck.npz"], 7),
     (["--nx", "2", "--devices", "2"], 15),
+    (["--nx", "2", "--checkpoint-every", "5"], 7),
+    (["--nx", "2", "--profile"], 7),
+    (["--nx", "2", "--deflation-k", "8"], 13),
+    (["--nx", "2", "--deflation-arnoldi", "40"], 13),
+    (["--nx", "2", "--ca-gmres"], 12),
+    (["--nx", "2", "--ca-basis", "newton"], 12),
+    (["--nx", "2", "--coarse-basis", "linear"], 10),
+    (["--nx", "2", "--coarse-smooth-omega", "0.5"], 10),
 ])
 def test_cli_flags_outside_the_slice_raise(argv, slice_no):
+    """Every flag of the JAX CLI is accepted; those of slices not ported
+    raise naming their slice (`--cpu` and the Schur flags run:
+    test_cli_schur_flags_run)."""
     with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
         run.main(argv + ["--device", "cpu"])
+
+
+@pytest.mark.parametrize("shape", ["lower", "full"])
+def test_cli_schur_flags_run(shape):
+    """The Schur tier's flags reach both solver configs and run (f32, 'sch'
+    on channel(3,2,2)); `--cpu` is `--device cpu`."""
+    out = run.main(["--nx", "3", "--ny", "2", "--nz", "2", "--steps", "1",
+                    "--cpu", "--dtype", "float32", "--preconditioner",
+                    "schur", "--coarse-agg", "4", "--schur-cheby", "3",
+                    "--schur-v-cheby", "2", "--schur-shape", shape])
+    s = out.solver
+    assert s.device == CPU and s.prep_kind == "sch"
+    for sc in (s.cfg.krylov, s.cfg.stokes_krylov):
+        assert (sc.schur_cheby, sc.schur_v_cheby, sc.schur_shape) == \
+            (3, 2, shape)
+    assert s._exact_prep.cheby_s[2] == 3 and s._exact_prep.cheby_v[2] == 2
+    assert s.stokes_result.converged and s.history[0][1].converged
 
 
 def test_cli_cgs2_runs():
@@ -417,6 +494,8 @@ def test_cli_krylov_flags_reach_both_solvers():
 def test_import_leaves_jax_out():
     code = ("import sys, navierstokes_tpu_torch, navierstokes_tpu_torch.run\n"
             "import navierstokes_tpu_torch.model, navierstokes_tpu_torch.convert\n"
+            "import navierstokes_tpu_torch.bench.transient_bench\n"
+            "import navierstokes_tpu_torch.bench.gmres_decomp\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'navierstokes_tpu.')) or m == 'navierstokes_tpu']\n"
             "assert not bad, bad\n"

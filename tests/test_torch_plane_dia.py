@@ -163,9 +163,9 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         tpd.spmv_planes_cuda(NODE_OFFS, data, x, n_in=4, nb=100)
     with pytest.raises(ValueError, match="1..4"):
         tpd.spmv_planes(NODE_OFFS, torch.zeros(5, nt, 128), x, n_in=4, nb=1)
-    with pytest.raises(ValueError, match="1..32"):
-        offs = tuple(range(33))
-        tpd.spmv_planes(offs, torch.zeros(1, 33, 128), torch.zeros(128),
+    with pytest.raises(ValueError, match="1..128"):
+        offs = tuple(range(129))
+        tpd.spmv_planes(offs, torch.zeros(1, 129, 128), torch.zeros(128),
                         n_in=1, nb=1)
     with pytest.raises(ValueError, match="shape"):
         tpd.spmv_planes(NODE_OFFS, data, x[:-1], n_in=4, nb=100)
@@ -411,6 +411,7 @@ def test_route_counters_and_cpu_tensors():
                                  route=route)
     assert tpd.plain_calls == 1 and tpd.kernel_launches == 0
     assert tpd.route_launches == {"tiled": 0, "rows": 0}
+    assert tpd.form_launches == {}
 
 
 def _constants(path):
