@@ -21,6 +21,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      A (81 diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and
      float64, and on random data likewise, timed like K1.  Phases 3 and 4
      require a second call to repeat the first bit for bit;
+  4b. K2's bf16 form (matvec_dtype): A and S rounded to bf16, x in float32
+     (rel 1e-6) and float64 (rel 1e-13) against its plain version, also on
+     random data nonzero outside the matrix, a second call equal bit for
+     bit; timed in turns with the f32 K2 on the same operator, flushed and
+     L2-warm, beside cuSPARSE f32 and the bound (no PyTorch call computes
+     bf16 data times an f32 x);
   5. K1 on the Schur tier's forms: the real S_hat (1x1 on its 65 node
      offsets, the sumset of the 15) of matrices 6 and 8, both routes,
      float32 and float64, equal bit for bit between routes and within the
@@ -58,6 +64,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      Stokes + 2 steps, K3 and K2 counted;
  12. the float64 CLI default (block-Jacobi + Neumann 2, the 'bj' prep) at
      matrix 6, Stokes + 2 steps, K2 counted, the same physics checks;
+ 12b. matvec_dtype='bfloat16' at matrix 6 in float32 on 'tl' and 'bj',
+     through NavierStokesSolver beside full precision: every step
+     converges, the bf16 K2 form counted and no plain call, on 'tl' the
+     state of 3 steps from one Stokes state within rel 5e-2 of full
+     precision (on 'bj' printed: it drifts in the JAX package alike);
+ 12c. the CLI's I/O at matrix 6: `--msh` on the mesh written by
+     write_gmsh (Stokes + 2 steps, physics checks); one 2-step run with
+     `--save --vtu --checkpoint --checkpoint-every 2 --profile` (.vtu
+     files, .pvd, the event table), `--resume` from it to step 4, and 4
+     steps uninterrupted, whose solution_step0004.dat the resumed run must
+     repeat bit for bit;
  13. the Schur tier: `run.main --matrix-id 8` at the float32 defaults
      ('auto' resolves to 'sch'), Stokes + 3 steps; K1 for every apply, no
      plain call, Newton <= 3, mean GMRES per step within 0.5x-2x of the
@@ -80,6 +97,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  19. the bench tools of the Schur tier at matrix 8: `transient_bench` (the
      product default, 3 steps; its TRANSIENT line, finite numbers) and
      `gmres_decomp` (every part of the 'sch' prep, the four GEMVs and K3);
+ 20. the discretization cache: `transient_bench --disc-cache` at matrix 8
+     twice, the second run loading the cache, with equal counts and an
+     equal final state bit for bit, both setup times printed;
 then each phase's wall seconds, the kernel summary line and, last, the
 device line.
 """
@@ -88,6 +108,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import importlib.util
 import io
 import json
@@ -115,8 +136,9 @@ from navierstokes_tpu_torch.fem.assembly import (
     assemble_dia_values,
     build_discretization,
 )
-from navierstokes_tpu_torch.io.dat import HEADER
+from navierstokes_tpu_torch.io.dat import HEADER, read_petsc_vec
 from navierstokes_tpu_torch.mesh.box import channel_mesh, scaling_series_mesh
+from navierstokes_tpu_torch.mesh.gmsh import write_gmsh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops import cgs2 as k3_ops
 from navierstokes_tpu_torch.ops import cuda_lib
@@ -146,6 +168,8 @@ KERNELS = {
                    "navierstokes_tpu/ops/plane_dia.py:113"),
     "dia_spmv": ("dia", "navierstokes_tpu_torch/csrc/dia.cu",
                  "navierstokes_tpu/ops/pallas_dia.py:35"),
+    "dia_spmv_bf16": ("dia", "navierstokes_tpu_torch/csrc/dia.cu",
+                      "navierstokes_tpu/ops/pallas_dia.py:53"),
     "cgs2_project": ("cgs2", "navierstokes_tpu_torch/csrc/cgs2.cu",
                      "navierstokes_tpu/ops/cgs2_pallas.py:132"),
     "spmpv_dia": ("mpk", "navierstokes_tpu_torch/csrc/mpk.cu",
@@ -387,8 +411,8 @@ def ptxas_summary(log: str) -> str:
 def build_phase():
     phase("build")
     t0 = time.perf_counter()
-    libs = [lib for lib, _, _ in KERNELS.values()]
-    if sorted(libs) != sorted(cuda_lib.SOURCES):
+    libs = sorted({lib for lib, _, _ in KERNELS.values()})
+    if libs != sorted(cuda_lib.SOURCES):
         raise AssertionError(f"KERNELS builds {libs}, the sources are "
                              f"{cuda_lib.SOURCES}")
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
@@ -592,6 +616,114 @@ def k2_phase(dev, mesh, pat, data64, flush):
         print(f"K2 A's offsets {str(dtype)[6:]}, random data nonzero outside "
               f"the matrix: rel {rel:.3e}")
     print("K2: every call repeated bit for bit")
+    return summary
+
+
+def pair_turns(fa, fb, flush, reps: int = 25) -> dict:
+    """Device times of two functions taken in turns (a, b, b, a), flushed
+    ("_flush") and L2-warm: each the mean of its two medians, with the
+    turns."""
+    t = {}
+    for key, fl in (("", None), ("_flush", flush)):
+        turns = {"a": [], "b": []}
+        for name in ("a", "b", "b", "a"):
+            turns[name].append(event_ms(fa if name == "a" else fb, reps,
+                                        flush=fl))
+        for name, ms in turns.items():
+            t[name + key] = statistics.mean(ms)
+            t[name + key + "_turns"] = ms
+    return t
+
+
+def k2_bf16_phase(dev, mesh, pat, data64, flush) -> dict:
+    """K2's bf16 form (matvec_dtype) on the matrix-6 A (81 diagonals) and
+    S = D^-1 A (123), the operator rounded to bf16, x in f32 and in f64:
+    against its plain version (rel 1e-6 with f32 x, 1e-13 with f64 x), a
+    second call equal bit for bit, also on random data nonzero where
+    i + off leaves the matrix; timed in turns with the f32 K2 on the same
+    operator, with the bound and cuSPARSE f32 beside it."""
+    phase("K2 bf16 form against its plain version (matrix-6 A and S)")
+    print("No single PyTorch call computes bf16 operator data times an f32 "
+          "or f64 x, so the bf16 form has no library time; the f32 K2 and "
+          "cuSPARSE's f32 CSR SpMV on the same operator stand beside it.")
+    nb, n = mesh.nv, 4 * mesh.nv
+    inv = block4_inverse(diag_blocks_from_dia(pat.offsets, data64, nb),
+                         pivot_eps=1e-300, shift=1e-8)
+    s_off, s_data = scale_rows_dia(pat, data64, inv)
+    forms = {"A": (pat.offsets, data64), "S": (s_off, s_data)}
+    bars = {torch.float32: 1e-6, torch.float64: 1e-13}
+    rng = np.random.default_rng(2077)
+    summary = {}
+
+    def check(label, offsets, data, x, bar):
+        y = dia_ops.spmv_dia(offsets, data, x)
+        torch.cuda.synchronize()
+        ref = dia_ops.spmv_dia_plain(offsets, data, x)
+        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+        same = torch.equal(dia_ops.spmv_dia(offsets, data, x), y)
+        if not (y.dtype == x.dtype and rel <= bar and same):
+            raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar}), "
+                                 f"repeat bit for bit: {same}")
+        return ref, rel, float((y - ref).abs().max())
+
+    for form, (offsets, d64) in forms.items():
+        data16 = d64.to(torch.bfloat16).contiguous()
+        data32 = d64.to(torch.float32).contiguous()
+        csr = dia_csr(offsets, data32)
+        for x_dtype, bar in bars.items():
+            x = torch.as_tensor(rng.standard_normal(n), dtype=x_dtype,
+                                device=dev)
+            label = (f"K2 bf16 {form} x {str(x_dtype)[6:]} "
+                     f"(K={len(offsets)})")
+            _, rel, abs_err = check(label, offsets, data16, x, bar)
+            x32 = x.to(torch.float32)
+
+            def bf16():
+                dia_ops.spmv_dia(offsets, data16, x)
+
+            def f32():
+                dia_ops.spmv_dia(offsets, data32, x32)
+
+            def plain():
+                dia_ops.spmv_dia_plain(offsets, data16, x)
+
+            t = pair_turns(bf16, f32, flush)
+            t["k"], t["k_flush"] = t["a"], t["a_flush"]
+            t["p"] = event_ms(plain, 25)
+            t["p_flush"] = event_ms(plain, 25, flush=flush)
+            t["lib"] = t["lib_flush"] = None
+            cus = (event_ms(lambda: csr @ x32, 25, flush=flush),
+                   event_ms(lambda: csr @ x32, 25))
+            in_range = sum(n - abs(d) for d in offsets)
+            t["bound"], t["bound_by"] = bound_ms(
+                data16.numel() * 2 + 2 * n * x.element_size(),
+                2 * in_range, x_dtype)
+            f32_bound, _ = bound_ms(data32.numel() * 4 + 2 * n * 4,
+                                    2 * in_range, torch.float32)
+
+            def turns(key):
+                return "/".join(f"{ms:.4f}" for ms in t[key + "_turns"])
+
+            print(f"{label}: rel {rel:.3e} max_abs {abs_err:.3e} | bf16 "
+                  f"{turns('a_flush')} ms flushed, {turns('a')} ms L2-warm "
+                  f"| f32 K2 {turns('b_flush')} / {turns('b')} ms (bound "
+                  f"{f32_bound:.4f}) | plain {t['p_flush']:.4f} / "
+                  f"{t['p']:.4f} ms | cuSPARSE f32 {cus[0]:.4f} / "
+                  f"{cus[1]:.4f} ms | bound {t['bound']:.4f} ms "
+                  f"({t['bound_by']})", flush=True)
+            summary[(form, x_dtype)] = (abs_err, t)
+
+        # random data nonzero where i + off leaves the matrix
+        rand16 = torch.as_tensor(rng.standard_normal((len(offsets), n)),
+                                 device=dev).to(torch.bfloat16)
+        for x_dtype, bar in bars.items():
+            x = torch.as_tensor(rng.standard_normal(n), dtype=x_dtype,
+                                device=dev)
+            _, rel, _ = check(f"K2 bf16 {form} random", offsets, rand16, x,
+                              bar)
+            print(f"K2 bf16 {form}'s offsets x {str(x_dtype)[6:]}, random "
+                  f"data nonzero outside the matrix: rel {rel:.3e}")
+    print("K2 bf16: every call repeated bit for bit")
     return summary
 
 
@@ -985,6 +1117,7 @@ def counters() -> dict:
             "K1 forms": dict(pd.form_launches),
             "K1 plain": pd.plain_calls,
             "K2": dia_ops.kernel_launches,
+            "K2 forms": dict(dia_ops.form_launches),
             "K2 plain": dia_ops.plain_calls,
             "K3": k3_ops.kernel_launches, "K3 plain": k3_ops.plain_calls,
             "K4": mpk_fused.kernel_launches,
@@ -1244,6 +1377,234 @@ def schur_cgs2_phase(lin_xla: float) -> int:
     return counts["K3"]
 
 
+def bf16_path_phase(kind: str) -> tuple:
+    """matvec_dtype='bfloat16' at matrix 6 in float32 on 'tl' (two_level,
+    spmv='pallas', Chebyshev 3) or 'bj' (block_jacobi), with the JAX
+    package's test tolerances (Krylov rtol 1e-4 / atol 1e-5, Newton rtol
+    1e-3 / atol 1e-4; 'bj' with Neumann order 2, the CLI's, since with the
+    test's order 1 its full-precision GMRES solves stop at maxiter at this
+    size), beside the same config in full precision, built through
+    NavierStokesSolver (the CLI has no flag for it).  The bf16 run's own
+    Stokes solve (on the bf16 operator, as in the JAX package) and 3 steps
+    from it must converge; their drift from the full-precision state is
+    printed ('bj''s Stokes solve stops at maxiter at this size, in the JAX
+    package too).  As in the JAX package's `test_bf16_matvec_mode`, 3 bf16
+    steps from the full-precision Stokes state must converge, and on 'tl'
+    land within rel 5e-2 of the full-precision steps (Newton's residual is
+    taken with the full-precision operator).  On 'bj' that drift is
+    printed only: the bf16 S perturbs a system this ill-conditioned past
+    what Newton's full-precision residual corrects, in the JAX package as
+    in the port (tests/test_torch_model.py::
+    test_matvec_dtype_block_jacobi_drifts_as_in_jax).  The bf16 K2 form
+    runs and no plain version.  Returns (bf16 K2 launches, counts)."""
+    extra = dict(preconditioner="two_level", spmv="pallas", coarse_cheby=3,
+                 neumann_order=1) if kind == "tl" else dict(
+                     preconditioner="block_jacobi", neumann_order=2)
+    kr = SolverConfig(rtol=1e-4, atol=1e-5, maxiter=3000, **extra)
+    newton = NewtonConfig(rtol=1e-3, atol=1e-4, du_tol=float("inf"))
+    phase(f"matvec_dtype='bfloat16' on the float32 '{kind}' path at matrix "
+          "6, Stokes + 3 steps, beside full precision")
+    mesh = scaling_series_mesh(6)
+    disc = None
+    solvers = {}
+    for mv in (None, "bfloat16"):
+        cfg = NSConfig(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float32",
+                       krylov=dataclasses.replace(kr, matvec_dtype=mv),
+                       stokes_krylov=dataclasses.replace(kr, matvec_dtype=mv),
+                       newton=newton)
+        solvers[mv] = NavierStokesSolver(mesh, cfg, disc=disc,
+                                         device="cuda")
+        disc = solvers[mv].disc
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    def trajectory(mv, u0, label):
+        """3 steps from u0, counted alone: (state, counts)."""
+        solver = solvers[mv]
+        solver.history.clear()
+        reset_counters()
+        u = solver.run(3, u0=u0, monitor=False)
+        torch.cuda.synchronize()
+        counts = counters()
+        hist = solver.history
+        step_ms = 1e3 * sum(sec for _, _, sec in hist) / len(hist)
+        print(f"matvec_dtype={mv}, {label}: steps (newton, gmres) "
+              + " ".join(f"({st.iters}, {st.lin_iters})"
+                         for _, st, _ in hist)
+              + f"; mean step {step_ms:.2f} ms; kernel counts {counts}",
+              flush=True)
+        if not all(st.converged for _, st, _ in hist) \
+                or not no_plain_calls(counts) or counts["K2"] <= 0 \
+                or not bool(torch.isfinite(u).all()):
+            raise AssertionError(f"matvec_dtype={mv} on '{kind}', {label}: "
+                                 f"a step did not converge, or counts "
+                                 f"{counts}")
+        return u, counts
+
+    stokes = {}
+    for mv, solver in solvers.items():
+        if solver.prep_kind != kind:
+            raise AssertionError(f"prep {solver.prep_kind}")
+        reset_counters()
+        stokes[mv] = solver.stokes_init()
+        solver._ensure_prepared()
+        torch.cuda.synchronize()
+        res = solver.stokes_result
+        print(f"matvec_dtype={mv}: prep {solver.prep_kind}, Stokes gmres="
+              f"{res.iters} converged={res.converged}; K2 forms "
+              f"{counters()['K2 forms']}")
+        # Block-Jacobi's Stokes solve stops at maxiter at this size in the
+        # JAX package too (ROADMAP, reference faults); the steps converge
+        if kind == "tl" and not res.converged:
+            raise AssertionError(f"matvec_dtype={mv}: Stokes did not "
+                                 "converge")
+    u0 = stokes[None]
+    v16, v32 = (stokes[m].reshape(-1, 4) for m in ("bfloat16", None))
+    print(f"the bf16 operator's own Stokes state against full precision: "
+          f"rel {rel(stokes['bfloat16'], u0):.3e} (velocity "
+          f"{rel(v16[:, :3], v32[:, :3]):.3e}, pressure "
+          f"{rel(v16[:, 3], v32[:, 3]):.3e}); no bar: it solves the "
+          "bf16-rounded Stokes system, which no Newton step corrects")
+    u32, _ = trajectory(None, u0, "from its Stokes state")
+    u16, counts = trajectory("bfloat16", u0, "from the full-precision "
+                             "Stokes state")
+    drift = rel(u16, u32)
+    own, _ = trajectory("bfloat16", stokes["bfloat16"], "from its own "
+                        "Stokes state")
+    bf16 = counts["K2 forms"].get("bfloat16/float32", 0)
+    print(f"'{kind}' bf16 steps against full precision, 3 steps from one "
+          f"Stokes state: rel {drift:.3e} "
+          + ("(bar 5e-2)" if kind == "tl" else "(printed only)")
+          + "; from its own Stokes "
+          f"state: rel {rel(own, u32):.3e} (printed only); bf16 K2 launches "
+          f"in 3 steps {bf16}")
+    if bf16 <= 0:
+        raise AssertionError(f"bf16 K2 launches {counts}")
+    if kind == "tl" and not drift < 5e-2:
+        raise AssertionError(f"bf16 state drift {drift}")
+    return bf16, counts
+
+
+def quiet_main(argv: list):
+    """run.main with its output captured and echoed; returns (RunOutput,
+    the output text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = run.main(argv + ["--device", "cuda"])
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return out, text
+
+
+def msh_phase() -> None:
+    """`--msh` on the matrix-6 mesh written by the port's write_gmsh:
+    Stokes + 2 steps at the f32 defaults, converged, the physics checks."""
+    phase("CLI I/O: write_gmsh of the matrix-6 mesh")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "m6.msh")
+        t0 = time.perf_counter()
+        write_gmsh(scaling_series_mesh(6), path)
+        print(f"write_gmsh of the matrix-6 mesh: "
+              f"{os.path.getsize(path)} bytes in "
+              f"{time.perf_counter() - t0:.3f} s")
+        out, counts = drive("CLI I/O: run.main --msh (the matrix-6 mesh "
+                            "through write_gmsh), float32, Stokes + 2 steps",
+                            ["--msh", path, "--dtype", "float32"], 2)
+    if out.solver.prep_kind != "tlp" or counts["K1"] <= 0:
+        raise AssertionError(f"prep {out.solver.prep_kind}, {counts}")
+
+
+def cli_io_phase() -> None:
+    """`--save --vtu`, `--checkpoint --checkpoint-every 2` and `--profile`
+    in one 2-step run at matrix 6 (f32); then `--resume` to step 4, whose
+    `solution_step0004.dat` must equal an uninterrupted 4-step run's bit
+    for bit."""
+    phase("CLI I/O at matrix 6: --save --vtu --checkpoint --checkpoint-every "
+          "2 --profile (2 steps), --resume to step 4, and 4 steps "
+          "uninterrupted")
+    base = ["--matrix-id", "6", "--dtype", "float32", "--save"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        dirs = {k: os.path.join(tmp, k) for k in ("a", "b", "c")}
+        t0 = time.perf_counter()
+        out_a, text = quiet_main(base + ["--steps", "2", "--save-dir",
+                                         dirs["a"], "--vtu", "--checkpoint",
+                                         ck, "--checkpoint-every", "2",
+                                         "--profile"])
+        print(f"run with --vtu, --checkpoint and --profile: "
+              f"{time.perf_counter() - t0:.3f} s")
+        files = sorted(os.listdir(dirs["a"]))
+        want = ["solution_0001.vtu", "solution_0002.vtu",
+                "solution_step0001.dat", "solution_step0002.dat",
+                "time_series.pvd"]
+        with open(os.path.join(dirs["a"], "solution_0002.vtu")) as f:
+            vtu_head = f.read(200)
+        if files != want or "UnstructuredGrid" not in vtu_head \
+                or not os.path.exists(ck):
+            raise AssertionError(f"--vtu/--checkpoint wrote {files}")
+        for event in ("Event", "setup", "stokes_init", "operator_prep",
+                      "time_loop"):
+            if event not in text:
+                raise AssertionError(f"--profile table lacks {event!r}")
+        out_b, text_b = quiet_main(base + ["--steps", "4", "--save-dir",
+                                           dirs["b"], "--resume", ck])
+        out_c, _ = quiet_main(base + ["--steps", "4", "--save-dir",
+                                      dirs["c"]])
+        if "resumed from step 2" not in text_b or \
+                [h[0] for h in out_b.solver.history] != [3, 4]:
+            raise AssertionError("the resume did not go on from step 2")
+        dat = "solution_step0004.dat"
+        with open(os.path.join(dirs["b"], dat), "rb") as fb, \
+                open(os.path.join(dirs["c"], dat), "rb") as fc:
+            same_dat = fb.read() == fc.read()
+        same_u = torch.equal(out_b.u, out_c.u)
+        rel = float(np.linalg.norm(
+            read_petsc_vec(os.path.join(dirs["b"], dat))
+            - read_petsc_vec(os.path.join(dirs["c"], dat))))
+        print(f"resumed step 4 against uninterrupted: .dat equal bit for "
+              f"bit {same_dat}, state equal bit for bit {same_u} "
+              f"(|diff| {rel:.3e})")
+        if not (same_dat and same_u):
+            raise AssertionError("the resumed run differs from the "
+                                 "uninterrupted one")
+    for out in (out_a, out_b, out_c):
+        if not all(st.converged for _, st, _ in out.solver.history):
+            raise AssertionError("a step did not converge")
+        check_physics(out)
+
+
+def disc_cache_phase() -> None:
+    """`transient_bench --disc-cache` at matrix 8 twice: the first run
+    builds and saves the discretization, the second loads it and repeats
+    the first's counts and final state bit for bit."""
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--matrix-id", "8", "--preconditioner", "auto", "--steps",
+                "1", "--disc-cache", os.path.join(tmp, "m8")]
+        phase("discretization cache: transient_bench.main("
+              + " ".join(argv[:-1]) + " <dir>) twice")
+        res = []
+        for _ in range(2):
+            buf = io.StringIO()
+            with contextlib.redirect_stderr(buf):
+                res += transient_bench.main(argv)
+            print(buf.getvalue(), end="", flush=True)
+            if len(res) == 1:
+                size = sum(os.path.getsize(os.path.join(tmp, "m8", f))
+                           for f in os.listdir(os.path.join(tmp, "m8")))
+                print(f"cache: {size} bytes")
+    built, loaded = res
+    print(f"discretization: built and saved in {built['disc_s']:.3f} s, "
+          f"loaded in {loaded['disc_s']:.3f} s; solver setup "
+          f"{built['setup_s']:.3f} s / {loaded['setup_s']:.3f} s")
+    same = torch.equal(built["state"], loaded["state"])
+    counts = [(r["newton"], r["lin"], r["mean_lin"]) for r in res]
+    print(f"counts (newton, lin, mean lin) {counts}; final state equal bit "
+          f"for bit {same}")
+    if counts[0] != counts[1] or not same:
+        raise AssertionError("the run from the cache differs")
+
+
 def golden_phase(dev):
     phase("small-input reference: golden trajectory, float64 on the card")
     spec = importlib.util.spec_from_file_location(
@@ -1372,6 +1733,7 @@ def main() -> int:
                         device=dev)
     k1 = k1_phase(dev, mesh, pat, data64, flush)
     k2 = k2_phase(dev, mesh, pat, data64, flush)
+    k2_bf16 = k2_bf16_phase(dev, mesh, pat, data64, flush)
     route_sweep_phase(dev, pat, flush)
     k1_schur = k1_schur_phase(dev, flush)
     k3 = k3_phase(dev, flush)
@@ -1382,6 +1744,10 @@ def main() -> int:
     k2_launches = scalar_path_phase(plane_lin)
     k3_comp_launches = scalar_comp_phase()
     f64_launches = f64_default_phase()
+    bf16_launches, _ = bf16_path_phase("tl")
+    bf16_path_phase("bj")
+    msh_phase()
+    cli_io_phase()
     sch_counts, sch_lin, _ = schur_path_phase(8, 3)
     k3_sch_launches = schur_cgs2_phase(sch_lin)
     schur_path_phase(9, 2)
@@ -1389,9 +1755,11 @@ def main() -> int:
     golden_phase(dev)
     k4_launches = bench_phase()
     bench_tools_phase()
+    disc_cache_phase()
 
     print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
-          f"default {f64_launches}; K3 launches: plane path {k3_launches}, "
+          f"default {f64_launches}, bf16 form on 'tl' {bf16_launches}; K3 "
+          f"launches: plane path {k3_launches}, "
           f"'tl' with pallas_comp {k3_comp_launches}, Schur tier at matrix "
           f"8 {k3_sch_launches}")
     print("phase wall seconds:")
@@ -1404,6 +1772,10 @@ def main() -> int:
                      entry_name="plane_spmv_s_hat",
                      form="S_hat 1x1 on 65 offsets, matrix 8 'sch' path"),
         kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)]),
+        kernel_entry("dia_spmv_bf16", bf16_launches,
+                     *k2_bf16[("A", torch.float32)],
+                     form="A bf16 operator, float32 x, matrix 6 'tl' path "
+                          "with matvec_dtype='bfloat16'"),
         kernel_entry("cgs2_project", k3_launches,
                      *k3[(torch.float32, 117_760, 15, False)]),
         kernel_entry("spmpv_dia", k4_launches, *k4[(torch.float32, 2)]),

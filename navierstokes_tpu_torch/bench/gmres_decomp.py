@@ -16,11 +16,13 @@ minv; 'tlp' and 'tl' parts: apply_A, apply_Dinv, coarse, minv.
 Usage:
     python -m navierstokes_tpu_torch.bench.gmres_decomp --matrix-id 8 \
         [--preconditioner auto|two_level|schur] [--spmv plane|auto] \
-        [--coarse-agg 128] [--cgs2 pallas] [--skip-slope] [--device cuda]
+        [--coarse-agg 128] [--cgs2 pallas] [--skip-slope] [--device cuda] \
+        [--disc-cache DIR]
 
 The default, preconditioner 'auto' on the plane layout, is the f32
 product default: 'tlp' up to 150k rows, 'sch' above; `--spmv auto` with
-`--preconditioner two_level` gives 'tl'.
+`--preconditioner two_level` gives 'tl'.  `--disc-cache DIR` loads the
+discretization from DIR, or builds it and saves it there.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from navierstokes_tpu_torch.bench.timing import chained_op_time
 from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
+from navierstokes_tpu_torch.fem.assembly import cached_discretization
 from navierstokes_tpu_torch.mesh.box import scaling_series_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops.cgs2 import cgs2_project
@@ -80,12 +83,9 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     p.add_argument("--disc-cache", default=None,
-                   help="(not ported: ROADMAP slice 8)")
+                   help="directory to load the discretization from, or to "
+                        "save it to when it holds none")
     args = p.parse_args(argv)
-    if args.disc_cache:
-        raise NotImplementedError(
-            "--disc-cache is not ported to navierstokes_tpu_torch yet "
-            "(ROADMAP slice 8: bench tools, the discretization cache)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda but no CUDA device is available "
@@ -101,10 +101,21 @@ def main(argv=None) -> dict:
                    newton=NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
                                        du_tol=float("inf")),
                    krylov=krylov, stokes_krylov=krylov)
-    mesh = scaling_series_mesh(args.matrix_id)
+    disc = None
+    if args.disc_cache:
+        t0 = time.perf_counter()
+        disc, loaded = cached_discretization(
+            args.disc_cache, lambda: scaling_series_mesh(args.matrix_id),
+            torch.float32, device)
+        _sync(device)
+        log(f"disc cache {'loaded' if loaded else 'built and saved'} in "
+            f"{time.perf_counter() - t0:.3f} s")
+        mesh = disc.mesh
+    else:
+        mesh = scaling_series_mesh(args.matrix_id)
 
     t0 = time.perf_counter()
-    solver = NavierStokesSolver(mesh, cfg, device=device)
+    solver = NavierStokesSolver(mesh, cfg, disc=disc, device=device)
     solver.release_assembly_buffers()
     _sync(device)
     prep = solver._exact_prep

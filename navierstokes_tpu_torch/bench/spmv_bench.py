@@ -7,20 +7,27 @@ flags and the same lines:
 
 over the synthetic scaling series.  The first variant, the plain PyTorch
 DIA SpMV, is the reference (`ref`) the others are held against.  Variants:
-K2 (`csrc/dia.cu`), K1 on the component-plane layout (`csrc/plane_dia.cu`,
-timed in its own layout) and, for spm2v/spm3v/spm4v, the fused one-sweep
-A^p x, K4 (`csrc/mpk.cu`).  The JAX variants whose layers are not ported
-print one line naming their ROADMAP slice.
+K2 (`csrc/dia.cu`), K2's bfloat16 form on the operator stored in bf16
+(`matvec_dtype`; its rel err is the bf16 rounding of the operator), K1 on
+the component-plane layout (`csrc/plane_dia.cu`, timed in its own layout)
+and, for spm2v/spm3v/spm4v, the fused one-sweep A^p x, K4
+(`csrc/mpk.cu`).  The JAX variants whose layers are not ported print one
+line naming their ROADMAP slice.
 
 Usage:
     python -m navierstokes_tpu_torch.bench.spmv_bench --matrices 6 \
-        --kernel spm2v,spm3v,spm4v [--dtype float32] [--device cuda]
+        --kernel spm2v,spm3v,spm4v [--dtype float32] [--device cuda] \
+        [--disc-cache DIR]
+
+`--disc-cache DIR` keeps one discretization per matrix in DIR/m<id>/,
+loaded where it is there and built and saved where it is not.
 """
 
 from __future__ import annotations
 
 import argparse
 import functools
+import os
 
 import numpy as np
 import torch
@@ -30,6 +37,7 @@ from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
     assemble_dia_values,
     build_discretization,
+    cached_discretization,
 )
 from navierstokes_tpu_torch.mesh.box import scaling_series_mesh
 from navierstokes_tpu_torch.ops import dia as dia_ops
@@ -50,8 +58,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 # JAX variants whose layers the port does not have yet: not timed.
 NOT_PORTED = (("oracle (segment-sum)", 16, "the BCSR oracle as a bench "
                "variant"),
-              ("block-ELL gather", 16, "sparse/bell.py"),
-              ("DIA bf16", 3, "matvec_dtype"))
+              ("block-ELL gather", 16, "sparse/bell.py"))
 
 
 def _cgs2_hook(V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -88,6 +95,8 @@ def run_one(kernel: str, disc, data: torch.Tensor, *,
         ("DIA plain (K2's plain version)", dia_ops.spmv_dia_plain, offsets,
          data, k, None),
         ("DIA K2", dia_ops.spmv_dia, offsets, data, k, None),
+        ("DIA bf16 K2", dia_ops.spmv_dia, offsets, data.to(torch.bfloat16),
+         k, None),
         (f"DIA plane-major K1 (N_D={len(noffs)})",
          functools.partial(spmv_plane, nb=nb), noffs, p4, k, to_plane_layout),
     ]
@@ -168,7 +177,9 @@ def main(argv=None) -> list:
                    help="2spmv only: insert a CGS2 projection against a "
                         "50-vector model basis between the chained SpMVs "
                         "(mpk/2SpMV.cpp:3-28)")
-    p.add_argument("--disc-cache", default=None, help="(not ported)")
+    p.add_argument("--disc-cache", default=None,
+                   help="directory holding per-matrix discretization caches "
+                        "(<dir>/m<id>/), created on first use")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu (the kernels' "
                         "plain versions)")
@@ -179,10 +190,6 @@ def main(argv=None) -> list:
             p.error(f"unknown kernel {kn}")
     if args.ortho and kernels != ["2spmv"]:
         p.error("--ortho applies to --kernel 2spmv only")
-    if args.disc_cache:
-        raise NotImplementedError(
-            "--disc-cache is not ported to navierstokes_tpu_torch yet "
-            "(ROADMAP slice 8: bench tools for the main path)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda but no CUDA device is available "
@@ -190,7 +197,13 @@ def main(argv=None) -> list:
     dtype = _DTYPES[args.dtype]
     rows = []
     for mid in (int(t) for t in args.matrices.split(",")):
-        disc = build_discretization(scaling_series_mesh(mid), dtype, device)
+        if args.disc_cache:
+            disc, _ = cached_discretization(
+                os.path.join(args.disc_cache, f"m{mid}"),
+                functools.partial(scaling_series_mesh, mid), dtype, device)
+        else:
+            disc = build_discretization(scaling_series_mesh(mid), dtype,
+                                        device)
         pat = disc.dia_pattern
         print(f"Matrix loaded: {disc.ndof} rows, {pat.nnz} nonzeros",
               flush=True)

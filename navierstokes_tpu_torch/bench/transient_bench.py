@@ -7,7 +7,8 @@ knob overridden on the command line), with the setup phases timed apart.
 Usage:
     python -m navierstokes_tpu_torch.bench.transient_bench --matrix-id 8 \
         [--steps 5] [--preconditioner auto] [--coarse-agg 128] \
-        [--schur-v-cheby 2] [--restart 30] [--device cuda]
+        [--schur-v-cheby 2] [--restart 30] [--device cuda] \
+        [--disc-cache DIR]
 
 Prints one summary line per run:
     TRANSIENT id=8 ndof=511024 setup_s=... stokes_s=... compile_s=... \
@@ -20,7 +21,9 @@ and its operator preparation, `stokes_s` the Stokes solve, `compile_s` the
 first step plus every nvcc build of the run (the JAX tool's first step
 carried the XLA compile), and `step_ms` the mean of the later steps, each
 ending in `torch.cuda.synchronize()`.  `--sweep` runs several override
-sets on one discretization.
+sets on one discretization.  `--disc-cache DIR` loads the discretization
+from DIR, or builds it and saves it there (the port's own format,
+`fem/assembly.py`); `disc_s` is then the seconds of that load or build.
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ import time
 import torch
 
 from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
-from navierstokes_tpu_torch.fem.assembly import build_discretization
+from navierstokes_tpu_torch.fem.assembly import (
+    build_discretization,
+    cached_discretization,
+)
 from navierstokes_tpu_torch.mesh.box import scaling_series_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops import cuda_lib
@@ -65,7 +71,9 @@ def base_krylov() -> SolverConfig:
 
 def run_one(matrix_id: int, steps: int, overrides: dict, device,
             mesh=None, disc=None, release: bool = False,
-            skip_stokes: bool = False) -> dict:
+            skip_stokes: bool = False, disc_s=None) -> dict:
+    """One run; its numbers (and `state`, the final state tensor, which
+    the TRANSIENT line leaves out)."""
     device = torch.device(device)
     base = base_krylov()
     krylov = dataclasses.replace(base, **overrides)
@@ -129,7 +137,8 @@ def run_one(matrix_id: int, steps: int, overrides: dict, device,
         + f"; mean lin {mean_lin:.1f}"
         + (f"; ms/lin-iter {step_ms / mean_lin:.3f}" if mean_lin else ""))
     result = {
-        "id": matrix_id, "ndof": solver.disc.ndof, "setup_s": setup_s,
+        "id": matrix_id, "ndof": solver.disc.ndof,
+        **({} if disc_s is None else {"disc_s": disc_s}), "setup_s": setup_s,
         "stokes_s": stokes_s, "compile_s": compile_s, "step_ms": step_ms,
         "newton": stats.iters, "lin": stats.lin_iters, "mean_lin": mean_lin,
     }
@@ -139,6 +148,7 @@ def run_one(matrix_id: int, steps: int, overrides: dict, device,
           + " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in result.items())
           + f" prep={solver.prep_kind} cfg={cfg_str}", flush=True)
+    result["state"] = u_cur
     return result
 
 
@@ -188,16 +198,13 @@ def main(argv=None):
     p.add_argument("--skip-stokes", action="store_true",
                    help="zero initial condition (probing large meshes)")
     p.add_argument("--disc-cache", default=None,
-                   help="(not ported: ROADMAP slice 8)")
+                   help="directory to load the discretization from, or to "
+                        "save it to when it holds none")
     p.add_argument("--sweep", default=None,
                    help="semicolon-separated override sets, each "
                         "'key=val,key=val' (SolverConfig field names); all "
                         "runs share one discretization")
     args = p.parse_args(argv)
-    if args.disc_cache:
-        raise NotImplementedError(
-            "--disc-cache is not ported to navierstokes_tpu_torch yet "
-            "(ROADMAP slice 8: bench tools, the discretization cache)")
     if args.release and args.sweep is not None:
         p.error("--release frees the discretization that --sweep shares")
     device = torch.device(args.device)
@@ -207,14 +214,28 @@ def main(argv=None):
     overrides = {k: getattr(args, k) for k in _OVERRIDES
                  if getattr(args, k) is not None}
 
+    mesh = disc = disc_s = None
+    if args.disc_cache:
+        t0 = time.perf_counter()
+        disc, loaded = cached_discretization(
+            args.disc_cache, lambda: scaling_series_mesh(args.matrix_id),
+            torch.float32, device)
+        _sync(device)
+        disc_s = time.perf_counter() - t0
+        mesh = disc.mesh
+        log(f"disc cache {'loaded' if loaded else 'built and saved'} in "
+            f"{disc_s:.3f} s (ndof={disc.ndof})")
     if args.sweep is None:
         return [run_one(args.matrix_id, args.steps, overrides, device,
-                        release=args.release, skip_stokes=args.skip_stokes)]
+                        mesh=mesh, disc=disc, release=args.release,
+                        skip_stokes=args.skip_stokes, disc_s=disc_s)]
 
-    mesh = scaling_series_mesh(args.matrix_id)
-    t0 = time.perf_counter()
-    disc = build_discretization(mesh, torch.float32, device)
-    log(f"shared discretization built in {time.perf_counter() - t0:.3f} s")
+    if disc is None:
+        mesh = scaling_series_mesh(args.matrix_id)
+        t0 = time.perf_counter()
+        disc = build_discretization(mesh, torch.float32, device)
+        log(f"shared discretization built in {time.perf_counter() - t0:.3f}"
+            " s")
     results = []
     for chunk in args.sweep.split(";"):
         ov = dict(overrides)

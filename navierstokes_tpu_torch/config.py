@@ -7,7 +7,8 @@ converts one to one (`convert.config_from_jax`).  Dtypes stay strings;
 The port runs these slices of the JAX package, all with the exact Jacobian
 and the operator-form residual: the two-level preconditioner on the
 component-plane layout ('tlp', spmv='plane') and on the scalar-DIA layout
-('tl', spmv in auto/xla/pallas), the pressure-Schur block preconditioner
+('tl', spmv in auto/xla/pallas; `matvec_dtype='bfloat16'` stores its
+operator in bf16, as on 'bj'), the pressure-Schur block preconditioner
 on the plane layout ('sch', the f32 'auto' tier above 150k rows),
 block-Jacobi with its Neumann boost ('bj', the float64 default), and for
 both two-level layouts the dense or the multilevel coarse level; GMRES
@@ -221,6 +222,32 @@ def _check_schur(sc: SolverConfig, jacobian: str) -> None:
                          "preps)")
 
 
+MATVEC_DTYPES = (None, "bfloat16")
+
+
+def _check_matvec_dtype(sc: SolverConfig) -> None:
+    """matvec_dtype='bfloat16' stores the operator GMRES applies in bf16;
+    the JAX package casts it on the scalar-DIA preps only, 'tl' and 'bj'.
+    Its 'tlp' and 'sch' preps return before the cast and ignore the option
+    (so 'auto', which resolves to one of them at every size, ignores it
+    too): the port raises there instead."""
+    if sc.matvec_dtype not in MATVEC_DTYPES:
+        raise ValueError(f"unknown matvec_dtype {sc.matvec_dtype!r}; "
+                         f"one of {MATVEC_DTYPES}")
+    if sc.matvec_dtype is None:
+        return
+    scalar = sc.preconditioner == "block_jacobi" or (
+        sc.preconditioner == "two_level" and sc.spmv != "plane")
+    if not scalar:
+        kind = "sch" if sc.preconditioner == "schur" else "tlp"
+        raise ValueError(
+            f"matvec_dtype={sc.matvec_dtype!r} takes the scalar-DIA layouts "
+            "only: preconditioner='two_level' with spmv auto, xla or pallas "
+            "('tl'), or preconditioner='block_jacobi' ('bj'); this config "
+            f"resolved to preconditioner={sc.preconditioner!r}, "
+            f"spmv={sc.spmv!r} ('{kind}'), which would ignore it")
+
+
 def _check_krylov(sc: SolverConfig, nv: int) -> None:
     _check_method(sc)
     p = sc.preconditioner
@@ -242,8 +269,7 @@ def _check_krylov(sc: SolverConfig, nv: int) -> None:
                          "expected 'const' or 'linear'")
     if sc.coarse_smooth_omega:
         _not_ported("coarse_smooth_omega", 10, "the coarse variants")
-    if sc.matvec_dtype is not None:
-        _not_ported("matvec_dtype", 3, "the plane layout and K1")
+    _check_matvec_dtype(sc)
     if sc.coarse_cheby:
         if p != "two_level":
             raise ValueError("coarse_cheby is the two_level post-smoother; "

@@ -43,7 +43,14 @@ def state_to_numpy(x) -> np.ndarray:
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a), device=device)
+    """An array (numpy, or JAX through `__array__`) -> a tensor.  A bfloat16
+    array (numpy's `ml_dtypes` kind, which `torch.as_tensor` refuses)
+    crosses as its 16-bit pattern."""
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.as_tensor(arr.view(np.int16),
+                               device=device).view(torch.bfloat16)
+    return torch.as_tensor(arr, device=device)
 
 
 def scalar_dia_from_jax(dia, device="cpu") -> ScalarDIA:
@@ -92,6 +99,7 @@ def prep_from_jax(prep, device="cpu"):
     c_static[, cheby]) with c_static ("dense", cs) or ("ml", cs, c_off,
     cs2); 'sch': ("sch", noffs, p4, arrays, (cs, SchurStatic), nb, nbp),
     whose tile-major plane stacks are carried into the plane-major layout.
+    bfloat16 operator data ('tl' and 'bj' with matvec_dtype) stays bf16.
     Pretiled scalar-DIA (3-D) data is not taken: prepare it off the
     TPU."""
     from navierstokes_tpu_torch.model.navier_stokes import (

@@ -38,10 +38,29 @@
 // Accumulation is in float for f32 data and in double for f64 data
 // (promote(dtype, f32), as in the TPU kernel).  The output dtype is x's,
 // which must equal data's.
+//
+// The bfloat16 operator form (`matvec_dtype='bfloat16'` on the 'tl' and
+// 'bj' paths): data is bf16, x and y are f32 or f64, and the sum is taken
+// in x's dtype (promote(x, f32)), diagonal by diagonal in the order given:
+// the semantics of the JAX package's XLA `spmv_dia` on bf16 data and of
+// its windowed Pallas form, which the TPU ran for the model (it pretiled
+// bf16 data).  The non-windowed Pallas form rounds x to bf16 before the
+// products (`pallas_dia.py`, `x.astype(data.dtype)`); only a direct call
+// reached it, and that rounding is a TPU quirk this kernel does not copy.
+// It halves the operator's bytes, so it is bound by bytes all the more.
+// One thread per row would make 64-byte warp requests of 2-byte values and
+// halve the bytes in flight, so each thread takes two adjacent rows
+// (2t, 2t+1) and reads both values of a diagonal with one 4-byte
+// __nv_bfloat162 load.  Diagonal k starts at element k * n, which is
+// 4-byte aligned for every k only when n is even: an odd n (no operator of
+// the solver has one; ndof = 4 nv) takes the same kernel with two 2-byte
+// loads per diagonal.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -98,6 +117,67 @@ int launch(const void* data, const void* x, void* y, int k, int n,
   return (int)cudaGetLastError();
 }
 
+// Two rows per thread: rows i = 2t and i + 1 (when < n), bf16 data, x and
+// y in T, the sum in T.  kPaired: n is even and data starts on 4 bytes, so
+// data[k, i] does too and the pair is one __nv_bfloat162 load.
+template <typename T, bool kPaired>
+__global__ void __launch_bounds__(kThreads)
+dia_spmv_bf16_kernel(const __nv_bfloat16* __restrict__ data,
+                     const T* __restrict__ x, T* __restrict__ y, int n,
+                     Offsets offs) {
+  const int i = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  const bool second = i + 1 < n;
+  const __nv_bfloat16* col = data + i;  // data[k, i] at col[k * n]
+  T acc0 = T(0), acc1 = T(0);
+#pragma unroll 8
+  for (int k = 0; k < offs.n; ++k) {
+    const __nv_bfloat16* dk = col + (size_t)k * n;
+    float d0, d1;
+    if (kPaired) {
+      const __nv_bfloat162 pair =
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(dk));
+      d0 = __low2float(pair);
+      d1 = __high2float(pair);
+    } else {
+      d0 = __bfloat162float(__ldg(dk));
+      d1 = second ? __bfloat162float(__ldg(dk + 1)) : 0.0f;
+    }
+    const int src = i + offs.d[k];
+    const T x0 = (src >= 0 && src < n) ? __ldg(x + src) : T(0);
+    const T x1 = (src + 1 >= 0 && src + 1 < n) ? __ldg(x + src + 1) : T(0);
+    acc0 += T(d0) * x0;
+    acc1 += T(d1) * x1;
+  }
+  y[i] = acc0;
+  if (second) y[i + 1] = acc1;
+}
+
+template <typename T>
+int launch_bf16(const void* data, const void* x, void* y, int k, int n,
+                const int* offsets, void* stream) {
+  if (k < 1 || k > kMaxDiagonals || n < 1 || offsets == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Offsets offs;
+  offs.n = k;
+  for (int t = 0; t < kMaxDiagonals; ++t) offs.d[t] = t < k ? offsets[t] : 0;
+
+  const int pairs = (n + 1) / 2;
+  const dim3 grid((pairs + kThreads - 1) / kThreads);
+  const dim3 block(kThreads);
+  const auto* d = static_cast<const __nv_bfloat16*>(data);
+  const auto* xs = static_cast<const T*>(x);
+  auto* ys = static_cast<T*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n % 2 == 0 && reinterpret_cast<uintptr_t>(data) % 4 == 0) {
+    dia_spmv_bf16_kernel<T, true><<<grid, block, 0, s>>>(d, xs, ys, n, offs);
+  } else {
+    dia_spmv_bf16_kernel<T, false><<<grid, block, 0, s>>>(d, xs, ys, n, offs);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dia_spmv_f32(const void* data, const void* x, void* y, int k,
@@ -108,4 +188,16 @@ extern "C" int dia_spmv_f32(const void* data, const void* x, void* y, int k,
 extern "C" int dia_spmv_f64(const void* data, const void* x, void* y, int k,
                             int n, const int* offsets, void* stream) {
   return launch<double>(data, x, y, k, n, offsets, stream);
+}
+
+extern "C" int dia_spmv_bf16_f32(const void* data, const void* x, void* y,
+                                 int k, int n, const int* offsets,
+                                 void* stream) {
+  return launch_bf16<float>(data, x, y, k, n, offsets, stream);
+}
+
+extern "C" int dia_spmv_bf16_f64(const void* data, const void* x, void* y,
+                                 int k, int n, const int* offsets,
+                                 void* stream) {
+  return launch_bf16<double>(data, x, y, k, n, offsets, stream);
 }

@@ -4,5 +4,7 @@ from navierstokes_tpu_torch.mesh.box import (
     channel_mesh,
     scaling_series_mesh,
 )
+from navierstokes_tpu_torch.mesh.gmsh import read_gmsh, write_gmsh
 
-__all__ = ["Mesh", "box_mesh", "channel_mesh", "scaling_series_mesh"]
+__all__ = ["Mesh", "box_mesh", "channel_mesh", "scaling_series_mesh",
+           "read_gmsh", "write_gmsh"]

@@ -51,6 +51,17 @@ class Mesh:
         """Total DoF count: 4 per node (u_x, u_y, u_z, p)."""
         return 4 * self.nv
 
+    def node_adjacency(self) -> tuple:
+        """Symmetric node-to-node adjacency (self pairs included) as sorted
+        (rows, cols) int32 COO: the operator's block pattern, one block per
+        pair of nodes sharing a tet."""
+        t = self.tets
+        ii = np.repeat(t, 4, axis=1).ravel()
+        jj = np.tile(t, (1, 4)).ravel()
+        keys = np.unique(ii.astype(np.int64) * self.nv + jj)
+        return ((keys // self.nv).astype(np.int32),
+                (keys % self.nv).astype(np.int32))
+
     @property
     def boundary_nodes(self) -> np.ndarray:
         """Nodes carrying a collected surface tag (sorted ascending)."""

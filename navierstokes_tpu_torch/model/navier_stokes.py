@@ -57,7 +57,9 @@ from navierstokes_tpu_torch.fem.assembly import (
     assemble_dia_values,
     build_discretization,
 )
+from navierstokes_tpu_torch.io.checkpoint import save_checkpoint
 from navierstokes_tpu_torch.io.dat import write_petsc_vec
+from navierstokes_tpu_torch.io.vtu import write_pvd, write_vtu
 from navierstokes_tpu_torch.mesh.core import Mesh
 from navierstokes_tpu_torch.ops import dia as dia_ops
 from navierstokes_tpu_torch.ops.block import block4_inverse
@@ -154,7 +156,7 @@ class ScalarTwoLevelPrep:
 
     kind = "tl"
     offsets: tuple
-    data: torch.Tensor          # (K, ndof) operator
+    data: torch.Tensor          # (K, ndof) operator (bf16 with matvec_dtype)
     invd: torch.Tensor          # (7, ndof) D^{-1}, offsets DINV_OFFSETS
     coarse: Coarse
     cs: CoarseSpace
@@ -168,7 +170,7 @@ class BlockJacobiPrep:
 
     kind = "bj"
     s_offsets: tuple
-    s_data: torch.Tensor        # (K', ndof)
+    s_data: torch.Tensor        # (K', ndof) (bf16 with matvec_dtype)
     invd: torch.Tensor          # (7, ndof)
 
 
@@ -284,15 +286,17 @@ class NavierStokesSolver:
         # The residual operator differs from the prepared two-level (or
         # Schur) one only in BC rows, which check() masks out of F: share
         # it.  The block-Jacobi S is pre-scaled by D^{-1}, so 'bj' keeps
-        # its own.
+        # its own, and so does 'tl' with matvec_dtype set: Newton's |F|
+        # is taken with the full-precision operator, as in the JAX package.
         if isinstance(prep, (PlanePrep, SchurPrep)):
             self._res_A = prep.p4
             self._res_M = extract_planes(offs, mass, self.disc.nv,
                                          node_offsets=self._noffs,
                                          nbp=self._nbp)
         else:
-            self._res_A = prep.data if isinstance(
-                prep, ScalarTwoLevelPrep) else jlin
+            share = isinstance(prep, ScalarTwoLevelPrep) and \
+                self.cfg.krylov.matvec_dtype is None
+            self._res_A = prep.data if share else jlin
             self._res_M = mass
         self._prepared = True
 
@@ -315,9 +319,16 @@ class NavierStokesSolver:
         nb = d.nv
         inv_diag = block4_inverse(diag_blocks_from_dia(offsets, dia_data, nb),
                                   pivot_eps=1e-300, shift=1e-8)
+        # matvec_dtype: the operator GMRES applies is stored in bf16 (K2's
+        # bf16 form); D^{-1} and the coarse level come from the
+        # full-precision operator, as in the JAX package.
+        mv_dtype = None if cfgk.matvec_dtype is None else \
+            getattr(torch, cfgk.matvec_dtype)
         if cfgk.preconditioner == "block_jacobi":
             s_offsets, s_data = scale_rows_dia(d.dia_pattern, dia_data,
                                                inv_diag)
+            if mv_dtype is not None:
+                s_data = s_data.to(mv_dtype)
             return BlockJacobiPrep(s_offsets, s_data,
                                    block_diag_to_dia(inv_diag).data)
         coarse = self._prepare_coarse(offsets, dia_data)
@@ -330,6 +341,10 @@ class NavierStokesSolver:
             d16[:, :nb] = inv_diag.permute(1, 2, 0).reshape(16, nb)
             prep = PlanePrep(self._noffs, p4, d16, coarse, cs, nb, nbp)
         else:
+            if mv_dtype is not None:
+                # cast after the coarse level: the Chebyshev interval is
+                # then estimated on the cast operator
+                dia_data = dia_data.to(mv_dtype)
             prep = ScalarTwoLevelPrep(offsets, dia_data,
                                       block_diag_to_dia(inv_diag).data,
                                       coarse, cs)
@@ -809,22 +824,35 @@ class NavierStokesSolver:
 
     def run(self, n_steps: Optional[int] = None, *, u0=None,
             save_dir: Optional[str] = None, save_every: Optional[int] = None,
-            monitor: bool = True) -> torch.Tensor:
+            write_vtu_files: bool = False, monitor: bool = True,
+            checkpoint_path: Optional[str] = None, checkpoint_every: int = 0,
+            start_step: int = 0, delta_u0=None) -> torch.Tensor:
         """Transient run mirroring the reference CLI (`-save` writes
-        `solution_stepNNNN.dat` per saved step).  Each step's stats and
-        wall seconds (measured after a device sync) go to `self.history`."""
+        `solution_stepNNNN.dat` per saved step; `write_vtu_files` adds
+        `solution_NNNN.vtu` and, at the end, `time_series.pvd`).  Each
+        step's stats and wall seconds (measured after a device sync) go to
+        `self.history`.
+
+        Resume, as in the JAX package: `start_step` goes on with the global
+        step numbering of the files and checkpoints, and `delta_u0` starts
+        the first Newton solve, so a resumed run repeats the uninterrupted
+        one bit for bit.  A checkpoint at the end of step N (every
+        `checkpoint_every` steps) holds the state the next step starts
+        from (u_old = u) and the fingerprint of the user-level config."""
         cfg = self.cfg
         n_steps = cfg.n_steps if n_steps is None else n_steps
         save_every = cfg.save_every if save_every is None else save_every
         if u0 is None:
             u0 = self.stokes_init()
-        u = u0.to(self.dtype)
+        u = torch.as_tensor(u0).to(self.device, self.dtype)
         u_old = u
-        delta_u = torch.zeros_like(u)
+        delta_u = torch.zeros_like(u) if delta_u0 is None else \
+            torch.as_tensor(delta_u0).to(self.device, self.dtype)
+        pvd_entries = []
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
 
-        for step in range(1, n_steps + 1):
+        for step in range(start_step + 1, start_step + n_steps + 1):
             t0 = time.perf_counter()
             u, delta_u, stats = self.step(u, u_old, delta_u)
             _sync(self.device)
@@ -838,5 +866,15 @@ class NavierStokesSolver:
             if save_dir and save_every and step % save_every == 0:
                 write_petsc_vec(
                     os.path.join(save_dir, f"solution_step{step:04d}.dat"), u)
+                if write_vtu_files:
+                    vtu = f"solution_{step:04d}.vtu"
+                    write_vtu(os.path.join(save_dir, vtu), self.disc.mesh, u)
+                    pvd_entries.append((step, vtu))
+            if checkpoint_path and checkpoint_every and \
+                    step % checkpoint_every == 0:
+                save_checkpoint(checkpoint_path, cfg=self.user_cfg,
+                                step=step, u=u, u_old=u, delta_u=delta_u)
             u_old = u
+        if save_dir and pvd_entries:
+            write_pvd(os.path.join(save_dir, "time_series.pvd"), pvd_entries)
         return u

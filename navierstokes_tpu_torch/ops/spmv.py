@@ -6,7 +6,8 @@ dispatch of the JAX package's `ops/spmv.py`.
 - `spmv_dia`: the scalar-DIA product, kernel-free on any device (K2's
   plain version).
 - `make_spmv`: the runtime variant choice by name; `'pallas_dia'` is
-  kernel K2 (`ops/dia.py`).
+  kernel K2 (`ops/dia.py`); `'dia'` and `'dia_bf16'` (the operator stored
+  in bfloat16) are the kernel-free XLA formulation, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ def make_spmv(variant: str, *, bcsr=None, dia=None):
     """Runtime SpMV variant dispatch by name, returning y = A x.
 
     bcsr: (row_ids, indices, values) tensors for 'oracle'; dia: a
-    `ScalarDIA` for 'dia' and 'pallas_dia' ('pallas_dia' is K2)."""
+    `ScalarDIA` for 'dia', 'dia_bf16' and 'pallas_dia' ('pallas_dia' is K2;
+    'dia_bf16' casts the data to bfloat16 once and returns x's dtype)."""
     if variant == "oracle":
         row_ids, indices, values = bcsr
         return lambda x: spmv_bcsr_ref(row_ids, indices, values, x)
@@ -52,8 +54,7 @@ def make_spmv(variant: str, *, bcsr=None, dia=None):
             "spmv variant 'ell' is not ported to navierstokes_tpu_torch yet "
             "(ROADMAP slice 16: sparse/bell.py)")
     if variant == "dia_bf16":
-        raise NotImplementedError(
-            "spmv variant 'dia_bf16' is not ported to navierstokes_tpu_torch "
-            "yet (ROADMAP slice 3: matvec_dtype)")
+        data16 = dia.data.to(torch.bfloat16)
+        return lambda x: spmv_dia(dia.offsets, data16, x)
     raise ValueError(f"unknown spmv variant {variant!r}; one of "
                      f"{SPMV_VARIANTS}")

@@ -8,6 +8,11 @@
     python -m navierstokes_tpu_torch.run --matrix-id 9 --steps 5
     python -m navierstokes_tpu_torch.run --nx 4 --ny 2 --nz 2 --steps 2 \
         --device cpu
+    python -m navierstokes_tpu_torch.run --msh mesh.msh --save --vtu
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 4 \
+        --checkpoint ck.npz --checkpoint-every 2 --profile
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 4 \
+        --resume ck.npz
 
 Runs on one device (`--device`, default `cuda`; `cpu` runs the kernels'
 plain PyTorch versions).  As in the JAX CLI, `--dtype` defaults to float32
@@ -19,7 +24,13 @@ whose 'auto' preconditioner takes the Schur tier above 150k rows
 scalar-DIA layout.  The Krylov
 flags override both the Newton and the Stokes solver configs.  Per-step
 output mirrors the reference Newton monitor; `--save` writes PETSc-ASCII
-`solution_stepNNNN.dat` files byte-compatible with the golden corpus.
+`solution_stepNNNN.dat` files byte-compatible with the golden corpus, and
+with `--vtu` also `solution_NNNN.vtu` and `time_series.pvd`.  `--msh`
+reads a Gmsh 2.2 file as it is numbered (no reordering).
+`--checkpoint PATH --checkpoint-every N` writes the state every N steps;
+`--resume PATH` goes on from it, without the Stokes solve, to the same
+final step as the uninterrupted run (`--steps` or t_final / dt counts from
+0).  `--profile` prints the event table of setup, Stokes and the time loop.
 """
 
 from __future__ import annotations
@@ -47,7 +58,8 @@ def default_f32_krylov():
 @dataclasses.dataclass
 class RunOutput:
     """What `main` ran: final state, the solver (with its per-step history
-    and Stokes result) and wall seconds, each read after a device sync."""
+    and Stokes result; None after `--resume`) and wall seconds, each read
+    after a device sync (`stokes_s` is the checkpoint load on a resume)."""
 
     u: torch.Tensor
     solver: object
@@ -66,12 +78,6 @@ _KRYLOV_FLAGS = ("spmv", "preconditioner", "neumann_order", "coarse_agg",
 
 # Flags of the JAX CLI whose slices are not ported: set, they raise.
 _NOT_PORTED = {
-    "msh": ("--msh (Gmsh meshes)", 1, "config and host layer"),
-    "vtu": ("--vtu", 7, "I/O and the full CLI"),
-    "checkpoint": ("--checkpoint", 7, "I/O and the full CLI"),
-    "checkpoint_every": ("--checkpoint-every", 7, "I/O and the full CLI"),
-    "resume": ("--resume", 7, "I/O and the full CLI"),
-    "profile": ("--profile", 7, "I/O and the full CLI"),
     "deflation_k": ("--deflation-k", 13, "deflation"),
     "deflation_arnoldi": ("--deflation-arnoldi", 13, "deflation"),
     "ca_gmres": ("--ca-gmres", 12, "CA-GMRES"),
@@ -154,16 +160,20 @@ def main(argv=None) -> Optional[RunOutput]:
                    help="GMRES orthogonalization: xla = four GEMVs per "
                         "step; pallas = the fused CGS2 projection, kernel "
                         "K3; pallas_comp = K3 with compensated h sums")
+    p.add_argument("--msh", help="Gmsh 2.2 mesh file")
+    p.add_argument("--vtu", action="store_true",
+                   help="with --save, also write .vtu files and a .pvd")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint file (.npz) to write")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="write the checkpoint every N steps")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint to go on from (skips the Stokes solve)")
+    p.add_argument("--profile", action="store_true",
+                   help="print an event-log report at the end")
     # Flags of the JAX CLI whose slices are not ported yet: they raise.
-    p.add_argument("--msh", help="Gmsh 2.2 mesh file (not ported)")
-    p.add_argument("--vtu", action="store_true", help="(not ported)")
-    p.add_argument("--checkpoint", default=None, help="(not ported)")
-    p.add_argument("--resume", default=None, help="(not ported)")
     p.add_argument("--devices", type=int, default=0,
                    help=">1: distributed solver (not ported)")
-    p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="(not ported)")
-    p.add_argument("--profile", action="store_true", help="(not ported)")
     p.add_argument("--deflation-k", type=int, default=None,
                    help="(not ported)")
     p.add_argument("--deflation-arnoldi", type=int, default=None,
@@ -188,11 +198,14 @@ def main(argv=None) -> Optional[RunOutput]:
         NSConfig,
         SolverConfig,
     )
+    from navierstokes_tpu_torch.io.checkpoint import load_checkpoint
     from navierstokes_tpu_torch.mesh.box import (
         channel_mesh,
         scaling_series_mesh,
     )
+    from navierstokes_tpu_torch.mesh.gmsh import read_gmsh
     from navierstokes_tpu_torch.model import NavierStokesSolver
+    from navierstokes_tpu_torch.utils.profiling import EventLog
 
     device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -203,8 +216,11 @@ def main(argv=None) -> Optional[RunOutput]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
+    events = EventLog()
     t0 = time.perf_counter()
-    if args.matrix_id:
+    if args.msh:
+        mesh = read_gmsh(args.msh)
+    elif args.matrix_id:
         mesh = scaling_series_mesh(args.matrix_id)
     elif args.nx:
         mesh = channel_mesh(
@@ -212,7 +228,7 @@ def main(argv=None) -> Optional[RunOutput]:
             args.nz or args.ny or args.nx // 2, obstacle=args.obstacle,
         )
     else:
-        p.error("one of --matrix-id / --nx required")
+        p.error("one of --msh / --matrix-id / --nx required")
 
     dtype = args.dtype or ("float64" if device.type == "cpu" else "float32")
     if dtype == "float32":
@@ -238,38 +254,54 @@ def main(argv=None) -> Optional[RunOutput]:
     print(f"Matrix size : {4 * mesh.nv}")
     print(f"device={device} dtype={dtype} nodes={mesh.nv} "
           f"tets={mesh.ne}")
-    solver = NavierStokesSolver(mesh, cfg, device=device)
+    with events.event("setup"):
+        solver = NavierStokesSolver(mesh, cfg, device=device)
+        sync()
     kr = solver.cfg.krylov
     print(f"preconditioner={kr.preconditioner} spmv={kr.spmv} "
           f"cgs2={kr.cgs2} prep={solver.prep_kind}"
           + (" (kernel-free: K2's plain version)" if kr.spmv == "xla"
              else ""))
-    sync()
     setup_s = time.perf_counter() - t0
 
-    print("Solving Stokes system...")
+    start_step, delta_u0 = 0, None
     t0 = time.perf_counter()
-    u0 = solver.stokes_init()
-    sync()
+    if args.resume:
+        # cfg is the user-level config, the one run() fingerprints its
+        # checkpoints with
+        start_step, u0, _, delta_u0 = load_checkpoint(args.resume, cfg=cfg)
+        print(f"resumed from step {start_step}")
+    else:
+        print("Solving Stokes system...")
+        with events.event("stokes_init"):
+            u0 = solver.stokes_init()
+            sync()
+        st = solver.stokes_result
+        print(f"Stokes: lin={st.iters} converged={st.converged}")
     stokes_s = time.perf_counter() - t0
-    st = solver.stokes_result
-    print(f"Stokes: lin={st.iters} converged={st.converged}")
 
     t0 = time.perf_counter()
-    solver._ensure_prepared()
-    sync()
+    with events.event("operator_prep"):
+        solver._ensure_prepared()
+        sync()
     prep_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    u = solver.run(
-        n_steps, u0=u0,
-        save_dir=args.save_dir if args.save else None,
-        save_every=args.save_every if args.save else 0,
-        monitor=True,
-    )
-    sync()
+    with events.event("time_loop"):
+        u = solver.run(
+            max(n_steps - start_step, 0), u0=u0,
+            save_dir=args.save_dir if args.save else None,
+            save_every=args.save_every if args.save else 0,
+            write_vtu_files=args.vtu, monitor=True,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            start_step=start_step, delta_u0=delta_u0,
+        )
+        sync()
     steps_s = time.perf_counter() - t0
     print(f"Total time: {steps_s:.6f} seconds")
+    if args.profile:
+        print(events.report())
     return RunOutput(u=u, solver=solver, setup_s=setup_s, stokes_s=stokes_s,
                      prep_s=prep_s, steps_s=steps_s)
 

@@ -52,7 +52,7 @@ class DIAPattern:
         return len(self.offsets)
 
 
-def _scaled_plan(off_list: list) -> tuple:
+def scaled_plan(off_list: list) -> tuple:
     """(scaled_offsets, scaled_terms) of S = D^{-1} A: result diagonal
     t = d + e for e in [-3, 3] and d in the operator's offsets."""
     off_set = set(off_list)
@@ -81,7 +81,7 @@ def build_dia_pattern(indptr: np.ndarray, indices: np.ndarray) -> DIAPattern:
     scalar_row = 4 * rows[:, None, None] + np.arange(4)[None, :, None]
     flat_map = (k_of * ndof + scalar_row).reshape(-1)
     off_list = [int(d) for d in offsets]
-    scaled_offsets, scaled_terms = _scaled_plan(off_list)
+    scaled_offsets, scaled_terms = scaled_plan(off_list)
     return DIAPattern(
         offsets=tuple(off_list),
         ndof=ndof,

@@ -18,7 +18,7 @@ import torch
 from navierstokes_tpu.fem import assembly as jas
 from navierstokes_tpu.mesh import box as jbox
 from navierstokes_tpu.ops import spmv as jspmv
-from navierstokes_tpu.ops.pallas_dia import spmv_dia_pallas
+from navierstokes_tpu.ops.pallas_dia import pretile_dia, spmv_dia_pallas
 from navierstokes_tpu.solvers import coarse as jco
 from navierstokes_tpu.sparse import dia as jdia
 from navierstokes_tpu_torch import convert
@@ -107,8 +107,8 @@ def test_plain_float32_accumulates_in_float32():
 
 
 def test_make_spmv_variants_match_jax(jdisc):
-    """'oracle', 'dia' and 'pallas_dia' give the JAX package's answers on
-    the assembled operator; 'ell' and 'dia_bf16' name their slices."""
+    """'oracle', 'dia', 'pallas_dia' and 'dia_bf16' give the JAX package's
+    answers on the assembled operator; 'ell' names its slice."""
     jd = jdisc
     pat = jd.dia_pattern
     data = np.asarray(jas.assemble_dia_values(
@@ -137,10 +137,16 @@ def test_make_spmv_variants_match_jax(jdisc):
     assert _rel(y_o.numpy(), y_j) <= 1e-13
     assert _rel(y_o.numpy(), y_ref) <= 1e-13
 
+    # the operator stored in bf16, x and y in f64: the same bf16 values
+    # and the same sums in both packages
+    y16_j = np.asarray(jspmv.make_spmv("dia_bf16", dia=j_dia)(jnp.asarray(x)))
+    y16 = tspmv.make_spmv("dia_bf16", dia=t_dia)(torch.as_tensor(x))
+    assert y16.dtype == torch.float64
+    assert _rel(y16.numpy(), y16_j) <= 1e-14
+    assert 1e-5 < _rel(y16.numpy(), y_ref) <= 2e-2     # the bf16 rounding
+
     with pytest.raises(NotImplementedError, match="slice 16"):
         tspmv.make_spmv("ell")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tspmv.make_spmv("dia_bf16", dia=t_dia)
     with pytest.raises(ValueError, match="unknown"):
         tspmv.make_spmv("csr")
 
@@ -208,8 +214,16 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         tdia.spmv_dia(offs, data, x[:-1])
     with pytest.raises(TypeError, match="dtype"):
         tdia.spmv_dia(offs, data.float(), x)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(TypeError, match="dtype"):
+        tdia.spmv_dia(offs, data, x.float())
+    # bf16 operator data with an f64 x runs (matvec_dtype); a bf16 x does
+    # not: bf16 is a storage dtype of the operator only
+    y = tdia.spmv_dia(offs, data.bfloat16(), x)
+    assert y.dtype == torch.float64 and y.shape == (64,)
+    with pytest.raises(TypeError, match="bfloat16"):
         tdia.spmv_dia(offs, data.bfloat16(), x.bfloat16())
+    with pytest.raises(TypeError, match="bfloat16"):
+        tdia.spmv_dia(offs, data, x.bfloat16())
 
 
 @pytest.mark.cuda
@@ -262,6 +276,87 @@ def test_plain_any_row_count_matches_pallas(jdisc, n, dtype, bar):
                       torch.as_tensor(x, dtype=dtype))
     assert y.dtype == dtype and y.shape == (n,)
     assert _rel(y.double().numpy(), y_pallas) <= bar
+
+
+def _bf16_pair(rng, k: int, n: int):
+    """Random operator data rounded to bf16 once (numpy -> JAX -> the
+    same 16-bit patterns in torch), nonzero also where i + off leaves the
+    matrix."""
+    j16 = jnp.asarray(rng.standard_normal((k, n))).astype(jnp.bfloat16)
+    return j16, convert._tensor(j16, "cpu")
+
+
+@pytest.mark.parametrize("x_dtype,bar", [("float32", 1e-6),
+                                         ("float64", 1e-14)])
+@pytest.mark.parametrize("n", [3000, 3001, 3002, 3003])
+def test_bf16_plain_matches_jax_spmv_dia(jdisc, n, x_dtype, bar):
+    """K2's bf16 form (matvec_dtype): bf16 operator data, x in f32 or f64,
+    the sum in x's dtype.  The plain version against the JAX package's XLA
+    `spmv_dia` on the same bf16 data and x, at n % 4 in {0, 1, 2, 3} (the
+    kernel reads two rows per thread, paired only where n is even)."""
+    offsets = jdisc.dia_pattern.offsets
+    rng = np.random.default_rng(100 + n)
+    j16, t16 = _bf16_pair(rng, len(offsets), n)
+    x = rng.standard_normal(n).astype(x_dtype)
+    y_j = np.asarray(jspmv.spmv_dia(offsets, j16, jnp.asarray(x)))
+    tdia.reset_counters()
+    y = tdia.spmv_dia(offsets, t16, torch.as_tensor(x))
+    assert t16.dtype == torch.bfloat16 and tdia.plain_calls == 1
+    assert y.dtype == getattr(torch, x_dtype) and y_j.dtype == x.dtype
+    assert _rel(y.double().numpy(), y_j.astype(np.float64)) <= bar
+
+
+@pytest.mark.parametrize("x_dtype,bar", [("float32", 1e-6),
+                                         ("float64", 1e-14)])
+def test_bf16_plain_matches_windowed_pallas(jdisc, x_dtype, bar):
+    """The TPU ran the model's bf16 operator through the windowed Pallas
+    form on pretiled data (x kept in its own dtype): run in interpret mode
+    as the JAX package's tests run it, it equals the plain version.  (The
+    non-windowed form rounds x to bf16 first, a TPU quirk not carried.)"""
+    offsets = jdisc.dia_pattern.offsets
+    n = jdisc.ndof
+    rng = np.random.default_rng(17)
+    j16, t16 = _bf16_pair(rng, len(offsets), n)
+    x = rng.standard_normal(n).astype(x_dtype)
+    y_win = np.asarray(spmv_dia_pallas(
+        offsets, pretile_dia(j16, n, tile=256), jnp.asarray(x),
+        interpret=True, windowed=True, n=n))
+    y = tdia.spmv_dia(offsets, t16, torch.as_tensor(x))
+    assert y_win.dtype == x.dtype
+    assert _rel(y.double().numpy(), y_win.astype(np.float64)) <= bar
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_matches_plain_on_the_card():
+    """K2's bf16 form on the card against its plain version, f32 x at rel
+    1e-6 and f64 x at rel 1e-13, at n % 4 in {0, 1, 2, 3} and on a view
+    that starts on 2 bytes (the unpaired loads), a second call equal bit
+    for bit, each launch counted under its form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K2 has no CPU or interpret mode")
+    from navierstokes_tpu_torch.fem.assembly import build_discretization
+    from navierstokes_tpu_torch.mesh import channel_mesh
+
+    offsets = build_discretization(channel_mesh(12, 6, 6), torch.float64,
+                                   torch.device("cpu")).dia_pattern.offsets
+    rng = np.random.default_rng(23)
+    tdia.reset_counters()
+    for dtype, bar in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        for n in (20000, 20001, 20002, 20003, -20000):
+            flat = torch.as_tensor(rng.standard_normal(
+                len(offsets) * abs(n) + 1)).to(torch.bfloat16).cuda()
+            data = (flat[1:] if n < 0 else flat[:-1]).view(len(offsets),
+                                                           abs(n))
+            x = torch.as_tensor(rng.standard_normal(abs(n)),
+                                dtype=dtype).cuda()
+            y = tdia.spmv_dia(offsets, data, x)
+            torch.cuda.synchronize()
+            ref = tdia.spmv_dia_plain(offsets, data, x)
+            err = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+            assert y.dtype == dtype and err <= bar, (dtype, n, err)
+            assert torch.equal(tdia.spmv_dia(offsets, data, x), y)
+    assert tdia.form_launches == {"bfloat16/float32": 10,
+                                  "bfloat16/float64": 10}
 
 
 def test_constants_match_the_source():

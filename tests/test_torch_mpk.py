@@ -8,6 +8,7 @@ the JAX package's own tests do.  Inputs are made with numpy from a seed, in
 float64.  The kernel itself runs only on the card (`cuda` marker).
 """
 
+import os
 import re
 
 import jax.numpy as jnp
@@ -208,7 +209,9 @@ def test_bench_main_on_the_cpu(capsys):
     """`bench.spmv_bench.main` at matrix 1, float64, on the CPU: the JAX
     bench's line format, every variant (K2, K1 on the plane layout, the
     fused K4 for spm2v/spm3v/spm4v) within rel 1e-12 of the chained plain
-    reference, the unported JAX variants named with their slice."""
+    reference, K2's bf16 form within the bf16 rounding of the operator
+    (rel 2e-2, the JAX package's bar for its bf16 operator), the unported
+    JAX variants named with their slice."""
     mpk_fused.reset_counters()
     rows = spmv_bench.main(["--matrices", "1", "--kernel",
                             "spmv,spm2v,spm3v,spm4v", "--dtype", "float64",
@@ -216,32 +219,46 @@ def test_bench_main_on_the_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("Matrix loaded: 252 rows, ")
     timed = [ln for ln in out if _LINE.match(ln)]
-    assert len(timed) == len(rows) == 3 + 3 * 4
-    assert sum("not ported (ROADMAP slice" in ln for ln in out) == 3 * 4
+    assert len(timed) == len(rows) == 4 + 3 * 5
+    assert sum("not ported (ROADMAP slice" in ln for ln in out) == 2 * 4
     fused = [r for r in rows if "FUSED K4" in r["name"]]
     assert [r["kernel"] for r in fused] == ["spm2v", "spm3v", "spm4v"]
+    assert sum(r["name"] == "DIA bf16 K2" for r in rows) == 4
     assert mpk_fused.plain_calls > 0
     for r in rows:
         assert r["matrix"] == 1 and r["us"] > 0
-        assert r["rel_err"] is None if r["name"].startswith("DIA plain") \
-            else r["rel_err"] <= 1e-12
+        if r["name"].startswith("DIA plain"):
+            assert r["rel_err"] is None
+        elif r["name"] == "DIA bf16 K2":
+            assert 1e-5 < r["rel_err"] <= 2e-2
+        else:
+            assert r["rel_err"] <= 1e-12
 
 
 def test_bench_ortho_hook_on_the_cpu():
     """2SpMV with the CGS2 hook between the chained applies, on both
     layouts: the plane variant projects against the basis in its own
-    layout and maps back to the reference at rel 1e-12."""
+    layout and maps back to the reference at rel 1e-12 (K2's bf16 form
+    within the bf16 rounding of the operator)."""
     rows = spmv_bench.main(["--matrices", "1", "--kernel", "2spmv",
                             "--ortho", "--dtype", "float64", "--device",
                             "cpu"])
-    assert len(rows) == 3 and rows[0]["rel_err"] is None
-    assert all(r["rel_err"] <= 1e-12 for r in rows[1:])
+    assert len(rows) == 4 and rows[0]["rel_err"] is None
+    for r in rows[1:]:
+        bar = 2e-2 if r["name"] == "DIA bf16 K2" else 1e-12
+        assert r["rel_err"] <= bar, r
 
 
-def test_bench_flags_outside_the_slice_and_rel_error():
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        spmv_bench.main(["--matrices", "1", "--disc-cache", "c",
-                         "--device", "cpu"])
+def test_bench_flags_outside_the_slice_and_rel_error(tmp_path):
+    """`--disc-cache` (slice 8) runs: the first run saves matrix 1's
+    discretization under <dir>/m1, the second loads it and gives the same
+    errors; and `rel_error`."""
+    argv = ["--matrices", "1", "--disc-cache", str(tmp_path), "--dtype",
+            "float64", "--device", "cpu"]
+    first = spmv_bench.main(argv)
+    assert sorted(os.listdir(tmp_path)) == ["m1"]
+    second = spmv_bench.main(argv)
+    assert [r["rel_err"] for r in second] == [r["rel_err"] for r in first]
     assert rel_error([3.0, 4.0], [3.0, 4.0]) == 0.0
     assert rel_error([3.0, 5.0], [3.0, 4.0]) == pytest.approx(0.2)
     assert np.isnan(rel_error(np.ones(3), np.zeros(3)))

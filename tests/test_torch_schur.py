@@ -286,9 +286,11 @@ def test_kernel_takes_the_schur_band_on_the_card():
                      / torch.linalg.norm(ref)) <= bar
 
 
-def test_transient_bench_prints_its_line(capsys):
+def test_transient_bench_prints_its_line(capsys, tmp_path):
     """transient_bench at matrix 1 on the CPU, the product default and the
-    Schur tier forced: one TRANSIENT line per run with finite numbers."""
+    Schur tier forced: one TRANSIENT line per run with finite numbers; with
+    `--disc-cache`, a run that builds and saves the discretization and one
+    that loads it give the same counts and the same state bit for bit."""
     res = transient_bench.main(["--matrix-id", "1", "--device", "cpu",
                                 "--steps", "2", "--sweep",
                                 "preconditioner=auto;preconditioner=schur,"
@@ -301,9 +303,29 @@ def test_transient_bench_prints_its_line(capsys):
         assert r["ndof"] == 252 and r["lin"] > 0
         assert all(np.isfinite(r[k]) for k in ("setup_s", "stokes_s",
                                                "compile_s", "step_ms"))
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        transient_bench.main(["--matrix-id", "1", "--device", "cpu",
-                              "--disc-cache", "cache"])
+    argv = ["--matrix-id", "1", "--device", "cpu", "--steps", "1",
+            "--disc-cache", str(tmp_path / "cache")]
+    built, = transient_bench.main(argv)
+    loaded, = transient_bench.main(argv)
+    err = capsys.readouterr().err
+    assert "disc cache built and saved" in err and "disc cache loaded" in err
+    for key in ("newton", "lin", "mean_lin"):
+        assert built[key] == loaded[key]
+    assert built["disc_s"] > 0 and loaded["disc_s"] > 0
+    assert torch.equal(built["state"], loaded["state"])
+
+
+def test_gmres_decomp_disc_cache(capsys, tmp_path):
+    """gmres_decomp with `--disc-cache`: the first run builds and saves the
+    discretization, the second loads it; both time every part."""
+    argv = ["--matrix-id", "1", "--device", "cpu", "--skip-slope",
+            "--disc-cache", str(tmp_path / "cache")]
+    first = gmres_decomp.main(argv)
+    second = gmres_decomp.main(argv)
+    out = capsys.readouterr().out
+    assert "disc cache built and saved" in out and "disc cache loaded" in out
+    assert set(first) == set(second) and "minv" in second
+    assert all(np.isfinite(v) and v > 0 for v in second.values())
 
 
 def test_gmres_decomp_prints_its_lines(capsys):
