@@ -100,8 +100,31 @@ Phases, in order; any failure raises and the script exits non-zero:
  20. the discretization cache: `transient_bench --disc-cache` at matrix 8
      twice, the second run loading the cache, with equal counts and an
      equal final state bit for bit, both setup times printed;
-then each phase's wall seconds, the kernel summary line and, last, the
-device line.
+ 21. the solver options of ROADMAP slices 2/5, 10, 11, 12 and 13, each
+     printing Newton and GMRES per step, its seconds and its kernel
+     launches by form, none with a plain call on the card:
+     (a) jacobian='reference' with the element-wise residual at matrix 6
+         in float32 on 'tlp' through the solver API, Stokes + 2 steps,
+         every step converged (Newton max_iter 30), assembly / prep / solve
+         seconds per Newton iteration, the gap to the exact-Jacobian
+         steps; one float64 residual, element-wise against operator form,
+         at rel <= 1e-12;
+     (b) the golden trajectory in reference mode (float64, 'bj', K2) at
+         1e-8, repeated bit for bit;
+     (c) `--coarse-basis linear --coarse-agg 128` at matrix 6 ('tlp'), 3
+         steps, mean GMRES beside the JAX package's history;
+     (d) smoothed aggregation (omega 0.6667) at matrix 3 in float64 on the
+         card and on the CPU: equal counts, states at rel 1e-9; the SA
+         prep at matrix 6 timed;
+     (e) `--ca-gmres --ca-basis newton --restart 12` at matrix 6, 2 steps;
+         the monomial basis for one Newton iteration (reported only);
+     (f) `--deflation-k 16` at matrix 6, 2 steps, and with `--cgs2
+         pallas`: one K3 launch per GMRES iteration, per step too;
+     (g) CG on the matrix-6 pressure block + 0.1 I through K1's 1x1 form
+         against the CPU solve at rel 1e-9; GMRES at matrix 3 with the
+         ILU(0) host oracle against block-Jacobi (K2 matvec);
+then each phase's wall seconds, the launches of the solver-option paths,
+the kernel summary line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -134,8 +157,11 @@ from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
 from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
     assemble_dia_values,
+    assemble_operator,
+    assemble_residual,
     build_discretization,
 )
+from navierstokes_tpu_torch.fem.dirichlet import zero_rows_bcsr
 from navierstokes_tpu_torch.io.dat import HEADER, read_petsc_vec
 from navierstokes_tpu_torch.mesh.box import channel_mesh, scaling_series_mesh
 from navierstokes_tpu_torch.mesh.gmsh import write_gmsh
@@ -146,7 +172,10 @@ from navierstokes_tpu_torch.ops import dia as dia_ops
 from navierstokes_tpu_torch.ops import grid_sync, mpk, mpk_fused
 from navierstokes_tpu_torch.ops import plane_dia as pd
 from navierstokes_tpu_torch.ops.block import block4_inverse
+from navierstokes_tpu_torch.solvers import precond
+from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import build_aggregates
+from navierstokes_tpu_torch.solvers.gmres import gmres
 from navierstokes_tpu_torch.sparse.dia import (
     block_diag_to_dia,
     diag_blocks_from_dia,
@@ -176,6 +205,7 @@ KERNELS = {
                   "navierstokes_tpu/ops/mpk_pallas.py:69"),
 }
 BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
+CLI_DEVICE = "cuda"         # the --device of every run.main call
 
 
 PHASES = []                 # (name, start on the host clock), in order
@@ -1137,7 +1167,8 @@ def drive(label: str, argv: list, n_steps: int, max_newton=3,
     with tempfile.TemporaryDirectory() as save_dir:
         reset_counters()
         out = run.main(argv + ["--steps", str(n_steps), "--save",
-                               "--save-dir", save_dir, "--device", "cuda"])
+                               "--save-dir", save_dir, "--device",
+                               CLI_DEVICE])
         counts = counters()
         with open(os.path.join(save_dir,
                                f"solution_step{n_steps:04d}.dat")) as f:
@@ -1491,7 +1522,7 @@ def quiet_main(argv: list):
     the output text)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        out = run.main(argv + ["--device", "cuda"])
+        out = run.main(argv + ["--device", CLI_DEVICE])
     text = buf.getvalue()
     print(text, end="", flush=True)
     return out, text
@@ -1607,12 +1638,7 @@ def disc_cache_phase() -> None:
 
 def golden_phase(dev):
     phase("small-input reference: golden trajectory, float64 on the card")
-    spec = importlib.util.spec_from_file_location(
-        "data_golden_trajectory",
-        os.path.join(ROOT, "tests", "data_golden_trajectory.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    golden = np.asarray(mod.TRAJ)
+    golden = np.asarray(load_golden())
     newton = NewtonConfig(rtol=1e-6, atol=1e-8, stol=1e-10)
 
     def trajectory(kw):
@@ -1708,6 +1734,416 @@ def bench_tools_phase():
         raise AssertionError(f"gmres_decomp: {rows}, {counts}")
 
 
+# --- the solver options of ROADMAP slices 2/5, 10, 11, 12, 13 -------------
+
+def f32_flagship_cfg(**changes) -> NSConfig:
+    """The CLI's float32 config at matrix 6 (run.py), with `changes` on
+    NSConfig and, under the key "krylov", on both Krylov configs."""
+    kr = dataclasses.replace(run.default_f32_krylov(),
+                             **changes.pop("krylov", {}))
+    cfg = NSConfig(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float32",
+                   newton=NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
+                                       du_tol=float("inf")),
+                   krylov=kr, stokes_krylov=kr)
+    return dataclasses.replace(cfg, **changes)
+
+
+def step_lines(label: str, hist) -> None:
+    """Newton and GMRES per step, its ms, and in reference mode each Newton
+    iteration's assembly / preparation / solve seconds."""
+    for step, st, sec in hist:
+        print(f"{label} step {step}: newton={st.iters} gmres={st.lin_iters} "
+              f"converged={st.converged} {sec * 1e3:.1f} ms")
+        for i, (a, p, s) in enumerate(st.seconds):
+            print(f"    Newton iteration {i + 1}: assembly {a:.4f} s, prep "
+                  f"(host coarse inverse) {p:.4f} s, solve {s:.4f} s")
+
+
+def forms_text(forms: dict) -> dict:
+    """Launches by form with the form as text: "n_out x n_in/offsets/route"
+    for K1, "data/x dtype" for K2."""
+    return {k if isinstance(k, str) else "/".join(map(str, k)): v
+            for k, v in forms.items()}
+
+
+def rel_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.linalg.norm(a.double() - b.double())
+                 / torch.linalg.norm(b.double()))
+
+
+def reference_mode_phase(dev, matrix_id: int = 6) -> dict:
+    """(a) jacobian='reference', residual='reference' (element-wise), float32
+    at matrix 6 through the solver API on 'tlp' ('auto' resolves to plain
+    two_level there): Stokes + 2 steps, each converged within the config's
+    max_iter of 30 Newton iterations, every apply through K1 and no plain
+    call; the gap to the exact-Jacobian steps from the same Stokes state;
+    then one float64 residual evaluation, element-wise against the operator
+    form (K2), at rel <= 1e-12."""
+    phase(f"(a) reference Jacobian, element-wise residual: matrix "
+          f"{matrix_id}, float32, 'tlp', Stokes + 2 steps (solver API)")
+    mesh = scaling_series_mesh(matrix_id)
+    ref = NavierStokesSolver(mesh, f32_flagship_cfg(
+        jacobian="reference", residual="reference"), device=dev)
+    kr = ref.cfg.krylov
+    if ref.prep_kind != "tlp" or kr.preconditioner != "two_level" \
+            or kr.coarse_cheby:
+        raise AssertionError(f"prep {ref.prep_kind}, {kr}")
+    t0 = time.perf_counter()
+    u0 = ref.stokes_init()
+    _sync(dev)
+    print(f"Stokes: gmres={ref.stokes_result.iters} converged="
+          f"{ref.stokes_result.converged} {time.perf_counter() - t0:.3f} s")
+    reset_counters()
+    u_ref = ref.run(2, u0=u0, monitor=False)
+    counts = counters()
+    step_lines("reference", ref.history)
+    print(f"kernel counts, 2 reference-mode steps: {counts}")
+    if not all(st.converged for _, st, _ in ref.history) \
+            or counts["K1"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"reference mode: {counts}")
+    exact = NavierStokesSolver(mesh, f32_flagship_cfg(krylov=dict(
+        preconditioner="two_level")), disc=ref.disc, device=dev)
+    u_ex = exact.run(2, u0=u0, monitor=False)
+    step_lines("exact", exact.history)
+    gap = rel_gap(u_ref, u_ex)
+    print(f"reference against exact Jacobian after 2 steps from one Stokes "
+          f"state: rel {gap:.3e} (printed only: both stop at Newton rtol "
+          "1e-4)")
+
+    disc = build_discretization(mesh, torch.float64, dev)
+    pat = disc.dia_pattern
+    rng = np.random.default_rng(2026)
+    u, u_old = (torch.as_tensor(rng.standard_normal(disc.ndof), device=dev)
+                for _ in range(2))
+
+    def assemble(terms):
+        return assemble_dia_values(disc.vol, disc.grad, disc.h, 1e-3, 300.0,
+                                   0.05, disc.dia_elem_map, terms=terms,
+                                   K=pat.K, ndof=disc.ndof)
+    jlin, mass = assemble(LINEAR_TERMS), assemble(frozenset({"mass_dt_bare"}))
+    reset_counters()
+    f_op = dia_ops.spmv_dia(pat.offsets, jlin, u) \
+        - dia_ops.spmv_dia(pat.offsets, mass, u_old)
+    f_el = assemble_residual(disc.tets, disc.vol, disc.grad, disc.h, u, u_old,
+                             1e-3, 300.0, 0.05, ndof=disc.ndof)
+    rel = rel_gap(f_el, f_op)
+    print(f"float64 residual at a seeded random state: element-wise against "
+          f"operator form (K2 {counters()['K2 forms']}) rel {rel:.3e} (bar "
+          "1e-12)")
+    if not rel <= 1e-12:
+        raise AssertionError(f"residual forms differ: {rel}")
+    return {"K1 per step": counts["K1"] / 2,
+            "K1 forms": forms_text(counts["K1 forms"]), "gap": gap}
+
+
+def golden_reference_phase(dev) -> dict:
+    """(b) the golden trajectory in the golden corpus's own mode (reference
+    Jacobian, element-wise residual, block-Jacobi 'bj', K2), float64 on the
+    card at 1e-8, twice: the second run repeats the first bit for bit."""
+    phase("(b) golden trajectory in reference mode, float64 on the card "
+          "('bj', K2)")
+    golden = np.asarray(load_golden())
+    kr = SolverConfig(rtol=1e-13, atol=1e-14, maxiter=4000)
+    cfg = NSConfig(dt=1e-3, t_final=5e-3, reynolds=100.0, delta=0.1,
+                   dtype="float64", jacobian="reference",
+                   residual="reference", krylov=kr, stokes_krylov=kr,
+                   newton=NewtonConfig(rtol=1e-6, atol=1e-8, stol=1e-10,
+                                       max_iter=30))
+    runs = []
+    for _ in range(2):
+        reset_counters()
+        solver = NavierStokesSolver(channel_mesh(4, 2, 2), cfg, device=dev)
+        states = [solver.stokes_init()]
+        du, lin = torch.zeros_like(states[0]), []
+        for _ in range(5):
+            u, du, st = solver.step(states[-1], states[-1], du)
+            if not st.converged:
+                raise AssertionError("golden reference-mode step did not "
+                                     "converge")
+            lin.append((st.iters, st.lin_iters))
+            states.append(u)
+        runs.append(torch.stack(states).cpu().numpy())
+        counts = counters()
+    errs = [np.linalg.norm(u - g) / np.linalg.norm(g)
+            for u, g in zip(runs[0], golden)]
+    print(f"golden rel errors, reference mode ({solver.prep_kind}; Stokes, "
+          "steps 1-5): " + " ".join(f"{e:.3e}" for e in errs)
+          + f" (bar 1e-8); (newton, gmres) per step {lin}; kernel counts "
+          f"{counts}")
+    if solver.prep_kind != "bj" or max(errs) > 1e-8 or counts["K2"] <= 0 \
+            or not no_plain_calls(counts):
+        raise AssertionError(f"golden reference mode: {max(errs)}, {counts}")
+    if not np.array_equal(runs[0], runs[1]):
+        raise AssertionError("golden reference mode differs between runs")
+    print("repeats bit for bit in a second run")
+    return {"K2 in 5 steps": counts["K2"], "max err": max(errs)}
+
+
+def load_golden():
+    spec = importlib.util.spec_from_file_location(
+        "data_golden_trajectory",
+        os.path.join(ROOT, "tests", "data_golden_trajectory.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.TRAJ
+
+
+def linear_coarse_phase(matrix_id: int = 6, agg: int = 128) -> dict:
+    """(c) the linear coarse basis on 'tlp' through the CLI: matrix 6,
+    --coarse-agg 128 (nc = 16 x 230 = 3,680), 3 steps, K1 for every apply;
+    mean GMRES beside the JAX package's 57.5-60.1 (TPU v5e, history)."""
+    out, counts = drive(f"(c) linear coarse basis: run.main --matrix-id "
+                        f"{matrix_id} --preconditioner two_level "
+                        f"--coarse-basis linear --coarse-agg {agg}, float32, "
+                        "Stokes + 3 steps ('tlp')",
+                        ["--matrix-id", str(matrix_id), "--dtype", "float32",
+                         "--preconditioner", "two_level", "--coarse-basis",
+                         "linear", "--coarse-agg", str(agg)], 3)
+    solver = out.solver
+    nc = solver._exact_prep.coarse.ac_inv.shape[0]
+    lin = mean_lin(out)
+    print(f"linear basis nc = {nc}; mean GMRES per step {lin:.1f} (JAX "
+          "package at matrix 6, 57.5-60.1, TPU v5e, history: "
+          "benchlogs/transient_scaling.txt)")
+    if solver.prep_kind != "tlp" or solver.cfg.krylov.coarse_basis \
+            != "linear" or counts["K1"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"prep {solver.prep_kind}, {counts}")
+    return {"K1": counts["K1"], "K1 forms": forms_text(counts["K1 forms"]),
+            "mean GMRES": lin, "nc": nc}
+
+
+def sa_phase(dev, matrix_id: int = 3, big: int = 6) -> dict:
+    """(d) smoothed aggregation, omega 0.6667: at matrix 3 in float64 on
+    'tlp' (coarse_agg 48, nc = 124), Stokes + 2 steps on the card and
+    through the port on the CPU: Newton counts equal, GMRES counts within
+    1 per solve (K1 and its plain version sum in another order, and a
+    solve that ends at its tolerance may take one iteration more or
+    less), states at rel <= 1e-9 (the JAX package's history beside them);
+    then at matrix 6 the SA prep is built and timed only (the JAX
+    package's SA stagnates there)."""
+    argv = ["--matrix-id", str(matrix_id), "--dtype", "float64",
+            "--preconditioner", "two_level", "--spmv", "plane",
+            "--coarse-agg", "48", "--coarse-smooth-omega", "0.6667"]
+    out, counts = drive("(d) smoothed aggregation: run.main "
+                        + " ".join(argv) + ", Stokes + 2 steps", argv, 2,
+                        max_newton=None, stokes_must_converge=False)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = run.main(argv + ["--steps", "2", "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+
+    def summary(o):
+        return [o.solver.stokes_result.iters] + [
+            (st.iters, st.lin_iters) for _, st, _ in o.solver.history]
+    card, host = summary(out), summary(cpu)
+    rel = rel_gap(out.u.cpu(), cpu.u)
+    same = abs(card[0] - host[0]) <= 1 and all(
+        nc == nh and abs(gc - gh) <= nc - 1
+        for (nc, gc), (nh, gh) in zip(card[1:], host[1:]))
+    print(f"SA matrix {matrix_id} (Stokes gmres, then (newton, gmres) per "
+          f"step): card {card}, CPU {host} ({cpu_s:.1f} s); states rel "
+          f"{rel:.3e} (bar 1e-9); JAX package, f64 on the CPU (history, "
+          "benchlogs/transient_scaling.txt): Newton 3 / GMRES 195, then "
+          "Newton 2 / GMRES 90")
+    if out.solver.prep_kind != "tlp" or not same or not rel <= 1e-9 \
+            or counts["K1"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"SA: card {card}, CPU {host}, rel {rel}, "
+                             f"{counts}")
+    phase(f"(d) smoothed-aggregation prep at matrix {big}, float32 'tlp' "
+          "(built and timed only)")
+    mesh = scaling_series_mesh(big)
+    solver = NavierStokesSolver(mesh, f32_flagship_cfg(krylov=dict(
+        preconditioner="two_level", coarse_smooth_omega=0.6667)), device=dev)
+    offs = solver.disc.dia_pattern.offsets
+    jlin = solver._assemble_dia(LINEAR_TERMS, solver.cfg.reynolds)
+    jlin = zero_rows_dia(offs, jlin, solver.disc.bc.is_bc)
+    _sync(dev)
+    t0 = time.perf_counter()
+    prep = solver._prepare_operator_dia(jlin)
+    _sync(dev)
+    sa_s = time.perf_counter() - t0
+    print(f"SA prep at matrix {big}: {sa_s:.3f} s (nc = "
+          f"{prep.coarse.ac_inv.shape[0]}, Chebyshev degree "
+          f"{prep.cheby[2] if prep.cheby else 0})")
+    return {"K1": counts["K1"], "card": card, "prep s": sa_s}
+
+
+def ca_gmres_phase(dev, matrix_id: int = 6) -> dict:
+    """(e) CA-GMRES through the CLI with the Newton basis, restart 12, at
+    matrix 6 in float32: 2 steps, converged (the Stokes solve runs before
+    the shifts exist and is monomial, as in the JAX package: not required
+    to converge); then the monomial basis through the solver API, one
+    Newton iteration capped at 300 GMRES, reported only (the JAX package's
+    monomial basis stalls in float32 here)."""
+    out, counts = drive(f"(e) CA-GMRES: run.main --matrix-id {matrix_id} "
+                        "--ca-gmres --ca-basis newton --restart 12, float32, "
+                        "Stokes + 2 steps", ["--matrix-id", str(matrix_id),
+                                             "--dtype", "float32",
+                                             "--ca-gmres", "--ca-basis",
+                                             "newton", "--restart", "12"], 2,
+                        stokes_must_converge=False)
+    solver = out.solver
+    print(f"Newton-basis shifts (Leja order): "
+          + ", ".join(f"{t:.4g}" for t in solver._ca_shifts))
+    if solver.cfg.krylov.method != "ca_gmres" or counts["K1"] <= 0 \
+            or not no_plain_calls(counts):
+        raise AssertionError(f"{solver.cfg.krylov}, {counts}")
+    mono = NavierStokesSolver(
+        solver.disc.mesh, f32_flagship_cfg(
+            krylov=dict(method="ca_gmres", restart=12, maxiter=300),
+            newton=NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
+                                du_tol=float("inf"), max_iter=1)),
+        disc=solver.disc, device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    _, _, st = mono.step(out.u, out.u, torch.zeros_like(out.u))
+    _sync(dev)
+    mono_counts = counters()
+    print(f"monomial basis, one Newton iteration capped at 300 GMRES: "
+          f"gmres={st.lin_iters} from |F| {st.res_hist[0]:.3e}, "
+          f"converged={st.converged} ({time.perf_counter() - t0:.3f} s; "
+          f"reported only); kernel counts {mono_counts}")
+    if not no_plain_calls(mono_counts):
+        raise AssertionError(f"monomial: {mono_counts}")
+    return {"K1": counts["K1"], "mean GMRES": mean_lin(out),
+            "Stokes GMRES": solver.stokes_result.iters,
+            "monomial GMRES": st.lin_iters}
+
+
+def deflation_phase(matrix_id: int = 6, k: int = 16) -> dict:
+    """(f) deflation through the CLI at matrix 6 in float32, --deflation-k
+    16: 2 steps; again with --cgs2 pallas, where every GMRES iteration of
+    the deflated solves launches K3 once (the Arnoldi of the setup runs
+    GEMVs): K3 launches equal the GMRES iterations of the run (Stokes +
+    steps) and of each of two further steps, counted alone."""
+    res = {}
+    for cgs2 in ("xla", "pallas"):
+        argv = ["--matrix-id", str(matrix_id), "--dtype", "float32",
+                "--deflation-k", str(k), "--cgs2", cgs2]
+        out, counts = drive(f"(f) deflation: run.main {' '.join(argv)}, "
+                            "float32, Stokes + 2 steps", argv, 2)
+        solver = out.solver
+        prep = solver._exact_prep
+        qq = float((prep.Q @ prep.Q.T - torch.eye(
+            prep.Q.shape[0], dtype=prep.Q.dtype, device=prep.Q.device)
+                    ).abs().max())
+        print(f"recycled pair: k = {prep.Q.shape[0]}, max |Q Q^T - I| "
+              f"{qq:.3e}")
+        if prep.kind != "defl" or counts["K1"] <= 0 \
+                or not no_plain_calls(counts) or not qq <= 1e-4:
+            raise AssertionError(f"deflation: {prep.kind}, {counts}, {qq}")
+        res[cgs2] = {"mean GMRES": mean_lin(out), "K1": counts["K1"]}
+        if cgs2 == "xla":
+            continue
+        gmres_its = solver.stokes_result.iters + sum(
+            st.lin_iters for _, st, _ in solver.history)
+        per_step = []
+        u = out.u
+        for _ in range(2):
+            reset_counters()
+            u, _, st = solver.step(u, u, torch.zeros_like(u))
+            per_step.append((st.lin_iters, counters()["K3"]))
+        print(f"K3 launches {counts['K3']} for {gmres_its} GMRES iterations "
+              f"(Stokes + steps); two further steps (GMRES, K3): "
+              f"{per_step}")
+        if not gmres_its <= counts["K3"] <= 1.05 * gmres_its or any(
+                not g <= n <= 1.05 * g + 1 for g, n in per_step):
+            raise AssertionError(f"K3 launches {counts['K3']} for "
+                                 f"{gmres_its}; {per_step}")
+        res[cgs2]["K3"] = counts["K3"]
+        res[cgs2]["per step"] = per_step
+    return res
+
+
+def cg_ilu_phase(dev, matrix_id: int = 6, ilu_matrix: int = 3) -> dict:
+    """(g) CG, float64, on the pressure-pressure plane of the matrix-6
+    Stokes operator taken before the BC rows are zeroed (delta h^2 vol
+    grad phi_i . grad phi_j, symmetric) plus 0.1 I, applied by K1's 1x1
+    form: converged, x against the CPU solve (K1's plain version) at rel
+    1e-9; then GMRES at matrix 3 with the ILU(0) host oracle against
+    block-Jacobi, the matvec through K2: ILU takes no more iterations,
+    the same x at 1e-6."""
+    phase(f"(g) CG on the matrix-{matrix_id} pressure block (K1 1x1), and "
+          f"ILU(0) against block-Jacobi at matrix {ilu_matrix} (K2)")
+    disc = build_discretization(scaling_series_mesh(matrix_id),
+                                torch.float64, dev)
+    pat, nb = disc.dia_pattern, disc.nv
+    stokes = assemble_dia_values(disc.vol, disc.grad, disc.h, 1e-3, 0.01,
+                                 0.05, disc.dia_elem_map,
+                                 terms=frozenset({"diffusion"}), K=pat.K,
+                                 ndof=disc.ndof)
+    noffs = pd.node_offsets_from_scalar(pat.offsets)
+    nbp = pd.plane_nbp(nb)
+    p4 = pd.extract_planes(pat.offsets, stokes, nb, node_offsets=noffs,
+                           nbp=nbp)
+    pp = p4[3:4, 3::4].contiguous()                  # (1, N_D, nbp)
+    pp[0, noffs.index(0), :nb] += 0.1
+    b = torch.zeros(nbp, dtype=torch.float64, device=dev)
+    b[:nb] = torch.as_tensor(np.random.default_rng(5).standard_normal(nb),
+                             device=dev)
+    out = {}
+    for where in ("card", "cpu"):
+        planes, rhs = (pp, b) if where == "card" else (pp.cpu(), b.cpu())
+        reset_counters()
+        t0 = time.perf_counter()
+        res = cg(lambda x: pd.spmv_planes(noffs, planes, x, n_in=1, nb=nb),
+                 rhs, rtol=1e-12, atol=1e-14, maxiter=2000)
+        out[where] = (res, time.perf_counter() - t0, counters())
+    (rc, tc, cc), (rh, th, _) = out["card"], out["cpu"]
+    rel = rel_gap(rc.x.cpu(), rh.x)
+    forms = {f: n for f, n in cc["K1 forms"].items() if f[0] == "1x1"}
+    print(f"CG: card {rc.iters} its converged={rc.converged} {tc:.3f} s, "
+          f"CPU {rh.iters} its {th:.3f} s; x rel {rel:.3e} (bar 1e-9); K1 "
+          f"1x1 launches {forms}")
+    if not (rc.converged and rh.converged) or not rel <= 1e-9 \
+            or not forms or not no_plain_calls(cc):
+        raise AssertionError(f"CG: {rc.converged}, {rel}, {cc}")
+
+    d3 = build_discretization(scaling_series_mesh(ilu_matrix), torch.float64,
+                              dev)
+    op = assemble_operator(d3, torch.zeros(d3.ndof, dtype=torch.float64,
+                                           device=dev), 0.01, 50.0, 0.1,
+                           LINEAR_TERMS)
+    op.values = zero_rows_bcsr(op.values, d3.row_ids, d3.indices,
+                               d3.diag_slots, d3.bc.row_bc)
+    p3 = d3.dia_pattern
+    a3 = assemble_dia_values(d3.vol, d3.grad, d3.h, 0.01, 50.0, 0.1,
+                             d3.dia_elem_map, terms=LINEAR_TERMS, K=p3.K,
+                             ndof=d3.ndof)
+    a3 = zero_rows_dia(p3.offsets, a3, d3.bc.is_bc)
+    rhs = d3.bc.value.to(torch.float64)
+
+    def matvec(x):
+        return dia_ops.spmv_dia(p3.offsets, a3, x)
+    t0 = time.perf_counter()
+    ilu = precond.ILU0Preconditioner(op)
+    fact_s = time.perf_counter() - t0
+    runs = {}
+    for name, m in (("block-Jacobi", precond.BlockJacobiPreconditioner
+                     .from_bcsr(op, d3.diag_slots)), ("ILU(0)", ilu)):
+        reset_counters()
+        t0 = time.perf_counter()
+        r = gmres(matvec, rhs, precond=m, restart=30, rtol=1e-10, atol=1e-12)
+        runs[name] = (r, time.perf_counter() - t0, counters())
+    (rj, tj, cj), (ri, ti, ci) = runs["block-Jacobi"], runs["ILU(0)"]
+    diff = float((ri.x - rj.x).abs().max())
+    print(f"matrix {ilu_matrix} GMRES(30): block-Jacobi {rj.iters} its "
+          f"{tj:.3f} s, ILU(0) {ri.iters} its {ti:.3f} s (factorization "
+          f"{fact_s:.3f} s, host); max |x_ILU - x_BJ| {diff:.3e} (bar 1e-6); "
+          f"K2 launches {cj['K2']} / {ci['K2']}")
+    if not (rj.converged and ri.converged) or ri.iters > rj.iters \
+            or not diff <= 1e-6 or not cj["K2"] or not ci["K2"] \
+            or not no_plain_calls(ci) or not no_plain_calls(cj):
+        raise AssertionError(f"ILU: {runs}")
+    return {"CG its": rc.iters, "K1 1x1": sum(forms.values()),
+            "ILU its": ri.iters, "BJ its": rj.iters}
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
 def kernel_entry(name: str, launches: int, abs_err: float, t: dict,
                  entry_name=None, form=None) -> dict:
     """The summary line's entry of kernel `name` (a key of KERNELS); a
@@ -1756,6 +2192,17 @@ def main() -> int:
     k4_launches = bench_phase()
     bench_tools_phase()
     disc_cache_phase()
+    options = {
+        "(a) reference mode": reference_mode_phase(dev),
+        "(b) golden reference mode": golden_reference_phase(dev),
+        "(c) linear coarse": linear_coarse_phase(),
+        "(d) smoothed aggregation": sa_phase(dev),
+        "(e) CA-GMRES": ca_gmres_phase(dev),
+        "(f) deflation": deflation_phase(),
+        "(g) CG and ILU": cg_ilu_phase(dev),
+    }
+    print("launches on the solver-option paths: " + json.dumps(
+        options, default=str))
 
     print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
           f"default {f64_launches}, bf16 form on 'tl' {bf16_launches}; K3 "

@@ -4,22 +4,25 @@ The dataclasses keep the reference names and defaults so a JAX `NSConfig`
 converts one to one (`convert.config_from_jax`).  Dtypes stay strings;
 `NSConfig.torch_dtype` maps them to `torch.float32` / `torch.float64`.
 
-The port runs these slices of the JAX package, all with the exact Jacobian
-and the operator-form residual: the two-level preconditioner on the
-component-plane layout ('tlp', spmv='plane') and on the scalar-DIA layout
-('tl', spmv in auto/xla/pallas; `matvec_dtype='bfloat16'` stores its
-operator in bf16, as on 'bj'), the pressure-Schur block preconditioner
-on the plane layout ('sch', the f32 'auto' tier above 150k rows),
-block-Jacobi with its Neumann boost ('bj', the float64 default), and for
-both two-level layouts the dense or the multilevel coarse level; GMRES
-orthogonalizes with four GEMVs (cgs2='xla') or the fused projection K3
-('pallas', 'pallas_comp' with compensated sums).  `check_supported`
-raises `NotImplementedError` for every option outside them, naming the
-ROADMAP slice that ports it, so that no option silently runs something
-else.  The `'auto'` resolution itself is carried over whole, so the tier
-choice is the JAX package's; where the tier it chooses cannot take the
-rest of the config, `resolve_supported` raises one `ValueError` that says
-so.
+The port runs every single-device option of the JAX package: the exact or
+the reference Jacobian, the operator or the element-wise residual; the
+two-level preconditioner on the component-plane layout ('tlp',
+spmv='plane') and on the scalar-DIA layout ('tl'), with the dense, the
+multilevel, the linear-basis ('tlp' only) or the smoothed-aggregation
+coarse level and the optional Chebyshev smoother; the pressure-Schur block
+preconditioner ('sch'); block-Jacobi with its Neumann boost ('bj');
+`matvec_dtype='bfloat16'` on 'tl' and 'bj'; GMRES (CGS2 through four GEMVs
+or the fused projection K3), CG and CA-GMRES with the monomial or the
+Newton basis; and deflation.  `check_supported` raises
+`NotImplementedError` only for `ell_slots`, the block-ELL layout of ROADMAP
+slice 16 (distribution, slice 15, is a CLI flag: `run.py`).  It raises the
+JAX package's own `ValueError` for what the JAX package refuses, and a
+`ValueError` where the JAX package would silently ignore or replace an
+option: `preconditioner='ilu0'|'none'` (block-Jacobi there), `matvec_dtype`
+off 'tl' and 'bj', and the coarse options under 'bj' and 'sch'.  The
+`'auto'` resolution itself is carried over whole, so the tier choice is the
+JAX package's; where the tier it chooses cannot take the rest of the
+config, `resolve_supported` raises one `ValueError` that says so.
 """
 
 from __future__ import annotations
@@ -184,23 +187,19 @@ def second_level_agg(nc: int, coarse_dense_max: int) -> int:
     return max(-(-nc // coarse_dense_max), 2)
 
 
-def _not_ported(what: str, slice_no: int, title: str):
-    raise NotImplementedError(
-        f"{what} is not ported to navierstokes_tpu_torch yet "
-        f"(ROADMAP slice {slice_no}: {title})"
-    )
+METHODS = ("gmres", "cg", "ca_gmres")
+CA_BASES = ("monomial", "newton")
 
 
 def _check_method(sc: SolverConfig) -> None:
-    if sc.method == "ca_gmres":
-        _not_ported("method='ca_gmres'", 12, "CA-GMRES")
-    if sc.method == "cg":
-        _not_ported("method='cg'", 11, "other preconditioners and solvers")
-    if sc.method != "gmres":
-        raise ValueError(f"unknown method {sc.method!r}")
+    if sc.method not in METHODS:
+        raise ValueError(f"unknown method {sc.method!r}; one of {METHODS}")
     if sc.cgs2 not in CGS2_CHOICES:
         raise ValueError(f"unknown cgs2 backend {sc.cgs2!r}; expected "
                          "'xla', 'pallas' or 'pallas_comp'")
+    if sc.ca_basis not in CA_BASES:
+        raise ValueError(f"unknown ca_basis {sc.ca_basis!r}; expected "
+                         "'monomial' or 'newton'")
 
 
 def _check_schur(sc: SolverConfig, jacobian: str) -> None:
@@ -222,6 +221,15 @@ def _check_schur(sc: SolverConfig, jacobian: str) -> None:
                          "preps)")
 
 
+def _layout(sc: SolverConfig) -> str:
+    """The prep kind a resolved SolverConfig builds."""
+    if sc.preconditioner == "block_jacobi":
+        return "bj"
+    if sc.preconditioner == "schur":
+        return "sch"
+    return "tlp" if sc.spmv == "plane" else "tl"
+
+
 MATVEC_DTYPES = (None, "bfloat16")
 
 
@@ -236,10 +244,8 @@ def _check_matvec_dtype(sc: SolverConfig) -> None:
                          f"one of {MATVEC_DTYPES}")
     if sc.matvec_dtype is None:
         return
-    scalar = sc.preconditioner == "block_jacobi" or (
-        sc.preconditioner == "two_level" and sc.spmv != "plane")
-    if not scalar:
-        kind = "sch" if sc.preconditioner == "schur" else "tlp"
+    kind = _layout(sc)
+    if kind in ("tlp", "sch"):
         raise ValueError(
             f"matvec_dtype={sc.matvec_dtype!r} takes the scalar-DIA layouts "
             "only: preconditioner='two_level' with spmv auto, xla or pallas "
@@ -248,27 +254,72 @@ def _check_matvec_dtype(sc: SolverConfig) -> None:
             f"spmv={sc.spmv!r} ('{kind}'), which would ignore it")
 
 
-def _check_krylov(sc: SolverConfig, nv: int) -> None:
+def _check_coarse_variants(sc: SolverConfig, nv: int, jacobian: str) -> None:
+    """coarse_basis='linear' and coarse_smooth_omega, as the JAX model
+    validates them in `_prepare_operator_dia`; under 'bj' and 'sch', where
+    the JAX package ignores both, the port raises."""
+    if sc.coarse_basis not in ("const", "linear"):
+        raise ValueError(f"unknown coarse_basis {sc.coarse_basis!r}; "
+                         "expected 'const' or 'linear'")
+    linear = sc.coarse_basis == "linear"
+    if not (linear or sc.coarse_smooth_omega):
+        return
+    knob = "coarse_basis='linear'" if linear else \
+        f"coarse_smooth_omega={sc.coarse_smooth_omega}"
+    kind = _layout(sc)
+    if kind in ("bj", "sch"):
+        raise ValueError(
+            f"{knob} takes the two-level coarse level only "
+            "(preconditioner='two_level'); this config resolved to "
+            f"preconditioner={sc.preconditioner!r} ('{kind}'), which would "
+            "ignore it")
+    n_agg = -(-nv // sc.coarse_agg)
+    if linear:
+        if kind != "tlp":
+            raise ValueError("coarse_basis='linear' requires spmv='plane' "
+                             "(the single-chip component-plane path)")
+        if sc.coarse_smooth_omega:
+            raise ValueError("coarse_basis='linear' and coarse_smooth_omega "
+                             "are mutually exclusive")
+        if 16 * n_agg > sc.coarse_dense_max:
+            raise ValueError(
+                "coarse_basis='linear' is supported on the dense coarse path "
+                f"only (nc={16 * n_agg} > coarse_dense_max="
+                f"{sc.coarse_dense_max}); raise coarse_agg or "
+                "coarse_dense_max")
+        if jacobian != "exact":
+            raise ValueError(
+                "coarse_basis='linear' requires eager operator preparation "
+                "(the default exact-Jacobian flow): the Galerkin product and "
+                "its inverse are built on the host in f64")
+        return
+    if 4 * n_agg > sc.coarse_dense_max:
+        raise ValueError(
+            "coarse_smooth_omega is supported on the dense coarse path only "
+            f"(nc={4 * n_agg} > coarse_dense_max={sc.coarse_dense_max}); "
+            "raise coarse_dense_max or coarse_agg")
+    if jacobian != "exact":
+        raise ValueError(
+            "coarse_smooth_omega requires eager operator preparation "
+            "(jacobian='exact'); the traced (reference-jacobian) path "
+            "cannot build the smoothed Galerkin product on host")
+
+
+def _check_krylov(sc: SolverConfig, nv: int, jacobian: str) -> None:
     _check_method(sc)
     p = sc.preconditioner
     if p in ("ilu0", "none"):
-        _not_ported(f"preconditioner={p!r}", 11,
-                    "other preconditioners and solvers")
+        raise ValueError(
+            f"preconditioner={p!r}: the JAX package runs block-Jacobi under "
+            "this name (its model prepares 'schur', 'two_level' and "
+            "otherwise 'bj'), and its ILU(0) is a host oracle "
+            "(solvers/precond.py, here too); set preconditioner="
+            "'block_jacobi' for what the JAX package runs")
     if p not in ("two_level", "block_jacobi", "schur"):
         raise ValueError(f"unknown preconditioner {p!r}")
     if sc.spmv not in SPMV_CHOICES:
         raise ValueError(f"unknown spmv {sc.spmv!r}; one of {SPMV_CHOICES}")
-    if sc.deflation_k:
-        _not_ported("deflation_k", 13, "deflation")
-    if sc.deflation_arnoldi:
-        _not_ported("deflation_arnoldi", 13, "deflation")
-    if sc.coarse_basis == "linear":
-        _not_ported("coarse_basis='linear'", 10, "the coarse variants")
-    if sc.coarse_basis != "const":
-        raise ValueError(f"unknown coarse_basis {sc.coarse_basis!r}; "
-                         "expected 'const' or 'linear'")
-    if sc.coarse_smooth_omega:
-        _not_ported("coarse_smooth_omega", 10, "the coarse variants")
+    _check_coarse_variants(sc, nv, jacobian)
     _check_matvec_dtype(sc)
     if sc.coarse_cheby:
         if p != "two_level":
@@ -278,6 +329,26 @@ def _check_krylov(sc: SolverConfig, nv: int) -> None:
         if not 0.0 < sc.coarse_cheby_fraction < 1.0:
             raise ValueError("coarse_cheby_fraction must be in (0, 1), got "
                              f"{sc.coarse_cheby_fraction}")
+        if jacobian != "exact":
+            raise ValueError(
+                "coarse_cheby requires eager operator preparation "
+                "(jacobian='exact'): the interval estimate is a host-side "
+                "eigenvalue computation")
+    if sc.deflation_k:
+        if jacobian != "exact":
+            raise ValueError(
+                "deflation_k requires jacobian='exact' (recycling assumes a "
+                "constant operator; the 'reference' mode rebuilds it every "
+                "Newton iteration)")
+        if sc.method != "gmres":
+            raise ValueError("deflation_k requires method='gmres' (the "
+                             "projected solve wraps the standard restarted "
+                             "GMRES)")
+    if sc.method == "ca_gmres" and sc.ca_basis == "newton" \
+            and jacobian != "exact":
+        raise ValueError("ca_basis='newton' requires jacobian='exact' (the "
+                         "shifts are Ritz values of the constant prepared "
+                         "operator)")
     n_agg = -(-nv // sc.coarse_agg)
     if p == "schur" and 3 * n_agg > sc.coarse_dense_max:
         raise ValueError("preconditioner='schur' uses dense coarse inverses "
@@ -294,23 +365,23 @@ def _check_krylov(sc: SolverConfig, nv: int) -> None:
 
 
 def check_supported(cfg: NSConfig, nv: int) -> None:
-    """Raise NotImplementedError for any option of a RESOLVED config that
-    lies outside the ported slice (see the module docstring).
+    """Validate a RESOLVED config (see the module docstring).
 
     As in the JAX package, both the Stokes and the Newton operators are
     prepared from `cfg.krylov`; `cfg.stokes_krylov` only sets the Stokes
-    solve's method and tolerances."""
+    solve's method and tolerances.  Every `residual` other than
+    'operator' means the element-wise residual, as in the JAX package."""
+    if cfg.ell_slots is not None:
+        raise NotImplementedError(
+            "ell_slots (the block-ELL layout) is not ported to "
+            "navierstokes_tpu_torch yet (ROADMAP slice 16: the rest)")
     if cfg.krylov.preconditioner == "schur":
         _check_schur(cfg.krylov, cfg.jacobian)
-    if cfg.jacobian == "reference":
-        _not_ported("jacobian='reference'", 5, "the model main path")
-    if cfg.jacobian != "exact":
+    if cfg.jacobian not in ("exact", "reference"):
         raise ValueError(f"unknown jacobian {cfg.jacobian!r}")
-    if cfg.residual != "operator":
-        _not_ported(f"residual={cfg.residual!r}", 2, "assembly")
     if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
-    _check_krylov(cfg.krylov, nv)
+    _check_krylov(cfg.krylov, nv, cfg.jacobian)
     _check_method(cfg.stokes_krylov)
 
 

@@ -15,6 +15,7 @@ import torch
 from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
 from navierstokes_tpu_torch.mesh.core import Mesh
 from navierstokes_tpu_torch.solvers.coarse import CoarseSpace
+from navierstokes_tpu_torch.sparse.bcsr import BCSR4
 from navierstokes_tpu_torch.sparse.dia import ScalarDIA
 
 
@@ -59,6 +60,12 @@ def scalar_dia_from_jax(dia, device="cpu") -> ScalarDIA:
                      data=_tensor(dia.data, device), nnz=int(dia.nnz))
 
 
+def bcsr_from_jax(m, device="cpu") -> BCSR4:
+    """A JAX-package `BCSR4` (host pattern, device values) -> the port's."""
+    return BCSR4(indptr=np.asarray(m.indptr), indices=np.asarray(m.indices),
+                 values=_tensor(m.values, device))
+
+
 def _coarse_space(cs) -> CoarseSpace:
     return CoarseSpace(n_agg=int(cs.n_agg), agg_size=int(cs.agg_size),
                        nb=int(cs.nb))
@@ -91,47 +98,77 @@ def _schur_prep(prep, device):
     return out
 
 
+def _coarse(c_arrays, c_static, device):
+    """A JAX (c_arrays, c_static) coarse level -> the port's."""
+    from navierstokes_tpu_torch.model.navier_stokes import (
+        DenseCoarse,
+        DenseLinearCoarse,
+        MultilevelCoarse,
+    )
+
+    if c_static[0] == "dense":
+        return DenseCoarse(_tensor(c_arrays[0], device))
+    if c_static[0] == "dense_lin":
+        return DenseLinearCoarse(_tensor(c_arrays[0], device),
+                                 _tensor(c_arrays[1], device))
+    if c_static[0] == "ml":
+        ac1, invd1, ac2_inv = (_tensor(a, device) for a in c_arrays)
+        return MultilevelCoarse(tuple(c_static[2]), ac1, invd1,
+                                _coarse_space(c_static[3]), ac2_inv)
+    raise ValueError(f"unknown coarse level {c_static[0]!r}")
+
+
 def prep_from_jax(prep, device="cpu"):
     """A JAX-package prepared tuple -> the port's prep.
 
     'bj': ("bj", s_offsets, s_data, invd_offsets, invd_data);
     'tl': ("tl", offsets, data, invd_offsets, invd_data, c_arrays,
-    c_static[, cheby]) with c_static ("dense", cs) or ("ml", cs, c_off,
-    cs2); 'sch': ("sch", noffs, p4, arrays, (cs, SchurStatic), nb, nbp),
-    whose tile-major plane stacks are carried into the plane-major layout.
-    bfloat16 operator data ('tl' and 'bj' with matvec_dtype) stays bf16.
-    Pretiled scalar-DIA (3-D) data is not taken: prepare it off the
-    TPU."""
+    c_static[, cheby]); 'tlp': ("tlp", noffs, p4, d16, c_arrays, c_static,
+    nb, nbp[, cheby]); c_static is ("dense", cs), ("dense_lin", cs) (with
+    c_arrays (ac_inv, w)) or ("ml", cs, c_off, cs2), and a smoothed-
+    aggregation prep is a 'dense' one whose omega the config holds;
+    'sch': ("sch", noffs, p4, arrays, (cs, SchurStatic), nb, nbp); 'defl':
+    ("defl", prep, U, Q) around any of these.  Tile-major plane stacks
+    are carried into the plane-major layout.  bfloat16 operator data ('tl'
+    and 'bj' with matvec_dtype) stays bf16.  Pretiled scalar-DIA (3-D)
+    data is not taken: prepare it off the TPU."""
     from navierstokes_tpu_torch.model.navier_stokes import (
         BlockJacobiPrep,
-        DenseCoarse,
-        MultilevelCoarse,
+        DeflatedPrep,
+        PlanePrep,
         ScalarTwoLevelPrep,
     )
 
     kind = prep[0]
+    if kind == "defl":
+        return DeflatedPrep(prep_from_jax(prep[1], device),
+                            _tensor(prep[2], device), _tensor(prep[3], device))
     if kind == "sch":
         return _schur_prep(prep, device)
+    if kind == "tlp":
+        _, noffs, p4, d16, c_arrays, c_static, nb, nbp = prep[:8]
+        out = PlanePrep(tuple(int(d) for d in noffs),
+                        _tensor(planes_from_tiled(p4), device),
+                        _tensor(d16, device),
+                        _coarse(c_arrays, c_static, device),
+                        _coarse_space(c_static[1]), int(nb), int(nbp),
+                        cheby=tuple(prep[8]) if len(prep) > 8 else None)
+        if out.p4.shape[-1] != out.nbp:
+            raise ValueError(f"tiled planes hold {out.p4.shape[-1]} rows, "
+                             f"nbp={out.nbp}")
+        return out
     if np.ndim(prep[2]) != 2:
         raise ValueError("prep_from_jax takes row-major (K, n) DIA data")
     if kind == "bj":
         return BlockJacobiPrep(tuple(prep[1]), _tensor(prep[2], device),
                                _tensor(prep[4], device))
     if kind != "tl":
-        raise ValueError(f"prep_from_jax takes 'bj', 'tl' or 'sch', got "
-                         f"{kind!r}")
+        raise ValueError(f"prep_from_jax takes 'bj', 'tl', 'tlp', 'sch' or "
+                         f"'defl', got {kind!r}")
     c_arrays, c_static = prep[5], prep[6]
-    if c_static[0] == "dense":
-        coarse = DenseCoarse(_tensor(c_arrays[0], device))
-    elif c_static[0] == "ml":
-        ac1, invd1, ac2_inv = (_tensor(a, device) for a in c_arrays)
-        coarse = MultilevelCoarse(tuple(c_static[2]), ac1, invd1,
-                                  _coarse_space(c_static[3]), ac2_inv)
-    else:
-        raise ValueError(f"coarse level {c_static[0]!r} is not ported")
     return ScalarTwoLevelPrep(
         tuple(prep[1]), _tensor(prep[2], device), _tensor(prep[4], device),
-        coarse, _coarse_space(c_static[1]),
+        _coarse(c_arrays, c_static, device), _coarse_space(c_static[1]),
         cheby=tuple(prep[7]) if len(prep) > 7 else None)
 
 

@@ -58,3 +58,21 @@ def build_dirichlet(mesh: Mesh, dtype: torch.dtype,
         value=torch.as_tensor(value.reshape(-1), dtype=dtype, device=device),
         row_bc=torch.as_tensor(is_bc, device=device),
     )
+
+
+def zero_rows_bcsr(values: torch.Tensor, row_ids, indices, diag_slots,
+                   row_bc: torch.Tensor) -> torch.Tensor:
+    """`MatZeroRows(J, rows, 1.0)` on BCSR block values (nnzb, 4, 4): every
+    scalar row of a constrained DoF is zeroed with 1.0 on its diagonal
+    (`src/solve_newton.c:1059,1247`).  `indices` (the block columns) is
+    taken for the JAX package's signature and not read."""
+    dev = values.device
+    row_ids = torch.as_tensor(row_ids, dtype=torch.int64, device=dev)
+    diag_slots = torch.as_tensor(diag_slots, dtype=torch.int64, device=dev)
+    zero = torch.zeros((), dtype=values.dtype, device=dev)
+    out = torch.where(row_bc[row_ids][:, :, None], zero, values)
+    eye = torch.eye(4, dtype=torch.bool, device=dev)
+    out[diag_slots] = torch.where(row_bc[:, :, None] & eye,
+                                  torch.ones((), dtype=values.dtype,
+                                             device=dev), out[diag_slots])
+    return out

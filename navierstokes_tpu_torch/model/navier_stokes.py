@@ -1,16 +1,20 @@
 """The transient Navier–Stokes engine: Stokes initialization, then
-backward-Euler steps with Newton on the exact Jacobian.
+backward-Euler steps with Newton.
 
 Pipeline per run (the reference's `src/solve_newton.c:925-1323`):
   1. Stokes initialization: assemble the steady Stokes operator with the
-     small Stokes Reynolds number, apply Dirichlet rows, GMRES-solve.
+     small Stokes Reynolds number, apply Dirichlet rows, solve.
   2. Time loop: per Newton iteration insert BC values, evaluate the
-     residual F = A_lin u - (M/dt) u_old (two SpMVs), test convergence,
-     solve J du = -F with GMRES on the constant, once-prepared exact
-     Jacobian.
+     residual, test convergence, solve J du = -F.  With the exact Jacobian
+     (the default) J is constant and prepared once; with
+     `jacobian='reference'` every iteration assembles the convection terms
+     at u, adds the once-assembled J_linear, zeroes the BC rows and
+     prepares that operator (`:1245-1246`).  The residual is
+     F = A_lin u - (M/dt) u_old (two SpMVs, `residual='operator'`) or the
+     element-wise contraction and scatter-add of `assemble_residual`.
 
-The ported paths are the single-device paths of the JAX package's
-`model/navier_stokes.py`, one prepared-operator kind each:
+The prepared-operator kinds are those of the JAX package's
+`model/navier_stokes.py`, one dataclass each:
 
   - 'tlp' (`PlanePrep`): the two-level preconditioner on the
     component-plane layout (spmv='plane', the f32 flagship), every
@@ -23,16 +27,20 @@ The ported paths are the single-device paths of the JAX package's
     3x1, S_hat 1x1 on the sumset of the node offsets) through K1, the
     host algebra in `solvers/schur.py`;
   - 'bj' (`BlockJacobiPrep`): block-Jacobi folded into the operator,
-    S = D^{-1} A, with the Neumann boost (the float64 default).
+    S = D^{-1} A, with the Neumann boost (the float64 default);
+  - 'defl' (`DeflatedPrep`): a recycled pair (U, Q) around any of the
+    first four but 'sch' (`solvers/deflation.py`, deflation_k > 0).
 
 The scalar-DIA applies (A, S, the 7-diagonal D^{-1}, the multilevel
 coarse level, the scalar residual) run kernel K2 (`ops/dia.py`).  With
 `cgs2` 'pallas' or 'pallas_comp', every GMRES solve (Stokes and Newton, on
-each kind) orthogonalizes through kernel K3 (`ops/cgs2.py`).  Both
-two-level kinds take a dense coarse inverse or, above `coarse_dense_max`,
-the multilevel coarse level.  Newton and GMRES are Python loops over device
-tensors; the host reads only the norms and Hessenberg columns it branches
-on.
+each kind, deflated too) orthogonalizes through kernel K3 (`ops/cgs2.py`).
+Both two-level kinds take a dense coarse inverse (piecewise constant, or
+smoothed aggregation with coarse_smooth_omega), 'tlp' the linear basis,
+and above `coarse_dense_max` the multilevel coarse level.  The Krylov
+method is GMRES, CG or CA-GMRES (`method`).  Newton and the Krylov
+methods are Python loops over device tensors; the host reads only the
+norms and small matrices it branches on.
 """
 
 from __future__ import annotations
@@ -52,10 +60,13 @@ from navierstokes_tpu_torch.config import (
 )
 from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
+    NONLINEAR_TERMS,
     STOKES_TERMS,
     Discretization,
     assemble_dia_values,
+    assemble_residual,
     build_discretization,
+    local_fields,
 )
 from navierstokes_tpu_torch.io.checkpoint import save_checkpoint
 from navierstokes_tpu_torch.io.dat import write_petsc_vec
@@ -73,23 +84,34 @@ from navierstokes_tpu_torch.ops.plane_dia import (
     to_planes,
 )
 from navierstokes_tpu_torch.solvers import schur as sch
+from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
     build_aggregates,
+    build_linear_weights,
     coarse_dia_offsets,
     coarse_operator_dia,
     coarse_operator_inverse_dia,
+    linear_coarse_inverse_dia,
     prolong,
     prolong_planes,
+    prolong_planes_linear,
     restrict,
     restrict_planes,
+    restrict_planes_linear,
+    smoothed_coarse_inverse_dia,
 )
-from navierstokes_tpu_torch.solvers.deflation import arnoldi
+from navierstokes_tpu_torch.solvers.deflation import (
+    arnoldi,
+    harmonic_ritz_basis,
+    recycle_space,
+)
 from navierstokes_tpu_torch.solvers.gmres import (
     GMRESResult,
     gmres,
     scalar_type,
 )
+from navierstokes_tpu_torch.solvers.sstep import ca_gmres, newton_shifts
 from navierstokes_tpu_torch.sparse.dia import (
     block_diag_to_dia,
     diag_blocks_from_dia,
@@ -106,6 +128,9 @@ class NewtonStats(NamedTuple):
     res_hist: np.ndarray        # (max_newton,) residual norms (nan-padded)
     du_hist: np.ndarray         # (max_newton,) update norms
     lin_iters: int              # total GMRES iterations across the step
+    # jacobian='reference': host-clock seconds of (assembly, preparation,
+    # solve) per Newton iteration, each part ended by a device sync
+    seconds: tuple = ()
 
 
 @dataclasses.dataclass
@@ -128,7 +153,17 @@ class MultilevelCoarse:
     ac2_inv: torch.Tensor       # (nc2, nc2) dense level-2 inverse
 
 
-Coarse = Union[DenseCoarse, MultilevelCoarse]
+@dataclasses.dataclass
+class DenseLinearCoarse:
+    """Dense coarse level of the per-aggregate linear basis (the JAX
+    package's 'dense_lin', 'tlp' only): A_c^{-1} over 16 DoF per aggregate
+    and the basis weight planes w (4, nb_pad)."""
+
+    ac_inv: torch.Tensor
+    w: torch.Tensor
+
+
+Coarse = Union[DenseCoarse, DenseLinearCoarse, MultilevelCoarse]
 
 
 @dataclasses.dataclass
@@ -204,12 +239,32 @@ class SchurPrep:
     seconds: dict = dataclasses.field(default_factory=dict)
 
 
-Prep = Union[PlanePrep, ScalarTwoLevelPrep, SchurPrep, BlockJacobiPrep]
+@dataclasses.dataclass
+class DeflatedPrep:
+    """A prepared operator with a GCRO recycled pair (the JAX package's
+    ("defl", prep, U, Q)): T U^T = Q^T, Q Q^T = I, both (k, n) on the
+    inner prep's vector layout."""
+
+    kind = "defl"
+    inner: Union[PlanePrep, ScalarTwoLevelPrep, BlockJacobiPrep]
+    U: torch.Tensor
+    Q: torch.Tensor
+
+
+Prep = Union[PlanePrep, ScalarTwoLevelPrep, SchurPrep, BlockJacobiPrep,
+             DeflatedPrep]
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _plane_shape(prep) -> Optional[tuple]:
+    """(nb, nbp) of a plane-layout prep ('tlp', 'sch'), else None."""
+    if isinstance(prep, (PlanePrep, SchurPrep)):
+        return prep.nb, prep.nbp
+    return None
 
 
 class NavierStokesSolver:
@@ -242,6 +297,8 @@ class NavierStokesSolver:
         kr = self.cfg.krylov
         self._coarse_space = build_aggregates(nb, kr.coarse_agg)
         self._coarse_l2 = None          # (offsets, CoarseSpace), built once
+        self._linear_w = None           # linear-basis weights, built once
+        self._ca_shifts = None          # Newton-basis shifts ('newton')
         self._plane = kr.spmv == "plane" and \
             kr.preconditioner in ("two_level", "schur")
         if self._plane:
@@ -255,7 +312,7 @@ class NavierStokesSolver:
     @property
     def prep_kind(self) -> str:
         """The prepared-operator kind this config builds: 'tlp', 'tl',
-        'sch' or 'bj'."""
+        'sch' or 'bj' (deflation wraps the exact Jacobian's, 'defl')."""
         p = self.cfg.krylov.preconditioner
         if p == "block_jacobi":
             return BlockJacobiPrep.kind
@@ -263,48 +320,83 @@ class NavierStokesSolver:
             return SchurPrep.kind
         return PlanePrep.kind if self._plane else ScalarTwoLevelPrep.kind
 
+    @property
+    def _reference(self) -> bool:
+        return self.cfg.jacobian == "reference"
+
     # -- assembly and operator preparation -----------------------------------
 
-    def _assemble_dia(self, terms, reynolds: float) -> torch.Tensor:
+    def _assemble_dia(self, terms, reynolds: float,
+                      UL: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = self.disc
         return assemble_dia_values(
             d.vol, d.grad, d.h, self.cfg.dt, reynolds, self.cfg.delta,
             d.dia_elem_map, terms=terms, K=d.dia_pattern.K, ndof=d.ndof,
+            UL=UL,
         )
 
     def _ensure_prepared(self):
-        """Build the exact-Jacobian prep and the residual operators once."""
+        """Build J_linear, the exact-Jacobian prep (with its recycled pair
+        and Newton-basis shifts) and the residual operators, once."""
         if self._prepared:
             return
+        cfgk = self.cfg.krylov
         offs = self.disc.dia_pattern.offsets
         jlin = self._assemble_dia(LINEAR_TERMS, self.cfg.reynolds)
-        jlin_bc = zero_rows_dia(offs, jlin, self.disc.bc.is_bc)
-        prep = self._prepare_operator_dia(jlin_bc)
+        prep = None
+        if self._reference:
+            # every Newton iteration adds the convection terms to J_linear
+            self._jlin = jlin
+        else:
+            prep = self._prepare_operator_dia(
+                zero_rows_dia(offs, jlin, self.disc.bc.is_bc))
+            if cfgk.deflation_k:
+                prep = self._build_deflation(prep)
+            if cfgk.method == "ca_gmres" and cfgk.ca_basis == "newton":
+                inner = prep.inner if isinstance(prep, DeflatedPrep) else prep
+                self._ca_shifts = self._build_ca_shifts(
+                    inner, min(cfgk.restart, 16))
         self._exact_prep = prep
+        if self.cfg.residual == "operator":
+            self._res_A, self._res_M = self._residual_operators(prep, jlin)
+        self._prepared = True
+
+    def _residual_operators(self, prep, jlin: torch.Tensor) -> tuple:
+        """(A_lin, M/dt) of the operator-form residual, on the layout the
+        residual runs on: planes where the solver runs the plane layout,
+        else scalar-DIA.
+
+        An exact two-level (or Schur) prep differs from the residual
+        operator only in BC rows, which check() masks out of F: share it.
+        The block-Jacobi S is pre-scaled by D^{-1}, so 'bj' keeps its own,
+        and so does 'tl' with matvec_dtype set: Newton's |F| is taken with
+        the full-precision operator, as in the JAX package."""
+        offs = self.disc.dia_pattern.offsets
         mass = self._assemble_dia(frozenset({"mass_dt_bare"}),
                                   self.cfg.reynolds)
-        # The residual operator differs from the prepared two-level (or
-        # Schur) one only in BC rows, which check() masks out of F: share
-        # it.  The block-Jacobi S is pre-scaled by D^{-1}, so 'bj' keeps
-        # its own, and so does 'tl' with matvec_dtype set: Newton's |F|
-        # is taken with the full-precision operator, as in the JAX package.
-        if isinstance(prep, (PlanePrep, SchurPrep)):
-            self._res_A = prep.p4
-            self._res_M = extract_planes(offs, mass, self.disc.nv,
-                                         node_offsets=self._noffs,
-                                         nbp=self._nbp)
-        else:
-            share = isinstance(prep, ScalarTwoLevelPrep) and \
-                self.cfg.krylov.matvec_dtype is None
-            self._res_A = prep.data if share else jlin
-            self._res_M = mass
-        self._prepared = True
+        inner = prep.inner if isinstance(prep, DeflatedPrep) else prep
+        if self._plane:
+            def planes(data):
+                return extract_planes(offs, data, self.disc.nv,
+                                      node_offsets=self._noffs,
+                                      nbp=self._nbp)
+            res_a = inner.p4 if inner is not None else planes(jlin)
+            return res_a, planes(mass)
+        share = isinstance(inner, ScalarTwoLevelPrep) and \
+            self.cfg.krylov.matvec_dtype is None
+        return (inner.data if share else jlin), mass
 
     def release_assembly_buffers(self) -> None:
         """Free the assembly-time device tensors (element geometry and the
         element scatter map: ~7 GB at matrix 10).  With the exact Jacobian
         and the operator residual every step works off the prepared
-        operators alone; call after `stokes_init`, which assembles."""
+        operators alone; call after `stokes_init`, which assembles.  Every
+        other mode assembles in each Newton iteration: RuntimeError."""
+        if not (self.cfg.jacobian == "exact"
+                and self.cfg.residual == "operator"):
+            raise RuntimeError(
+                "release_assembly_buffers requires jacobian='exact' and "
+                "residual='operator' (other modes assemble per step)")
         self._ensure_prepared()
         d = self.disc
         d.tets = d.vol = d.grad = d.h = d.dia_elem_map = None
@@ -331,7 +423,7 @@ class NavierStokesSolver:
                 s_data = s_data.to(mv_dtype)
             return BlockJacobiPrep(s_offsets, s_data,
                                    block_diag_to_dia(inv_diag).data)
-        coarse = self._prepare_coarse(offsets, dia_data)
+        coarse = self._prepare_coarse(offsets, dia_data, inv_diag)
         cs = self._coarse_space
         if self._plane:
             nbp = self._nbp
@@ -439,13 +531,31 @@ class NavierStokesSolver:
         lap("to the device")
         return prep
 
-    def _prepare_coarse(self, offsets: tuple,
-                        dia_data: torch.Tensor) -> Coarse:
-        """The coarse level: a dense inverse when nc <= coarse_dense_max,
-        else the multilevel level (sparse A_c, dense second level)."""
+    def _prepare_coarse(self, offsets: tuple, dia_data: torch.Tensor,
+                        inv_diag: torch.Tensor) -> Coarse:
+        """The coarse level: the linear basis's dense inverse
+        (coarse_basis='linear'); a dense inverse when nc <=
+        coarse_dense_max (of the smoothed-aggregation Petrov-Galerkin
+        matrix with coarse_smooth_omega); else the multilevel level (sparse
+        A_c, dense second level).  Every dense inverse is taken on the
+        host in float64, in every Jacobian mode."""
         cfgk = self.cfg.krylov
         cs = self._coarse_space
+        if cfgk.coarse_basis == "linear":
+            if self._linear_w is None:
+                w = build_linear_weights(cs, self.disc.mesh.coords)
+                self._linear_w = (w, torch.as_tensor(w).to(self.device,
+                                                            self.dtype))
+            w_host, w_dev = self._linear_w
+            return DenseLinearCoarse(linear_coarse_inverse_dia(
+                cs, offsets, dia_data, w_host, shift=cfgk.coarse_shift),
+                w_dev)
         if cs.nc <= cfgk.coarse_dense_max:
+            if cfgk.coarse_smooth_omega:
+                return DenseCoarse(smoothed_coarse_inverse_dia(
+                    cs, offsets, dia_data, inv_diag,
+                    omega=cfgk.coarse_smooth_omega,
+                    shift=cfgk.coarse_shift))
             return DenseCoarse(coarse_operator_inverse_dia(
                 cs, offsets, dia_data, shift=cfgk.coarse_shift))
         if self._coarse_l2 is None:
@@ -478,11 +588,7 @@ class NavierStokesSolver:
     def _estimate_smoother_lmax(self, prep, m: int = 20) -> float:
         """max |Ritz value| of G = D^{-1}A from an m-step Arnoldi sweep
         started from the BC value vector (ones if that is zero)."""
-        rhs = self.disc.bc.value.to(self.dtype)
-        if not float(torch.linalg.norm(rhs)):
-            rhs = torch.ones_like(rhs)
-        if isinstance(prep, PlanePrep):
-            rhs = to_planes(rhs, prep.nb, prep.nbp)
+        rhs = self._arnoldi_rhs(prep, ones_if_zero=True)
         m = min(m, rhs.shape[0] - 2)
         _, _, parts = self._prep_operators(prep)
         _, H = arnoldi(lambda x: parts["apply_Dinv"](parts["apply_A"](x)),
@@ -506,7 +612,7 @@ class NavierStokesSolver:
         (nc, nc) GEMV in full float32/float64.  Multilevel: the sparse
         level-1 system is solved by two-grid cycles (dense level-2
         correction, then damped level-1 block-Jacobi sweeps)."""
-        if isinstance(coarse, DenseCoarse):
+        if isinstance(coarse, (DenseCoarse, DenseLinearCoarse)):
             ac_inv = coarse.ac_inv
 
             def dense_solve(rc):
@@ -567,6 +673,7 @@ class NavierStokesSolver:
             return self._bj_operators(prep)
         if isinstance(prep, SchurPrep):
             return self._schur_operators(prep)
+        coarse_solve = self._make_coarse_solve(prep.coarse)
         if isinstance(prep, PlanePrep):
             noffs, p4, nb, nbp, cs = (prep.node_offsets, prep.p4, prep.nb,
                                       prep.nbp, prep.cs)
@@ -579,11 +686,16 @@ class NavierStokesSolver:
                 # block-diagonal D^{-1}: 16 elementwise plane multiplies
                 return (d3 * r.reshape(1, 4, nbp)).sum(1).reshape(-1)
 
-            def to_coarse(r):
-                return restrict_planes(cs, r, nbp)
+            if isinstance(prep.coarse, DenseLinearCoarse):
+                w = prep.coarse.w
 
-            def from_coarse(zc):
-                return prolong_planes(cs, zc, nbp, nb)
+                def coarse_p0(r):
+                    zc = coarse_solve(restrict_planes_linear(cs, r, nbp, w))
+                    return prolong_planes_linear(cs, zc, nbp, nb, w)
+            else:
+                def coarse_p0(r):
+                    zc = coarse_solve(restrict_planes(cs, r, nbp))
+                    return prolong_planes(cs, zc, nbp, nb)
         else:
             cs = prep.cs
 
@@ -593,25 +705,29 @@ class NavierStokesSolver:
             def apply_Dinv(r):
                 return self._spmv(DINV_OFFSETS, prep.invd, r)
 
-            def to_coarse(r):
-                return restrict(cs, r)
+            def coarse_p0(r):
+                return prolong(cs, coarse_solve(restrict(cs, r)))
 
-            def from_coarse(zc):
-                return prolong(cs, zc)
+        om = self.cfg.krylov.coarse_smooth_omega
 
-        coarse_solve = self._make_coarse_solve(prep.coarse)
+        def coarse(r):
+            z = coarse_p0(r)
+            if om:
+                # the smoothed-aggregation prolongator, applied on the fly:
+                # P zc = (I - om D^{-1} A) P0 zc (the Galerkin matrix of
+                # smoothed_coarse_dense_matrix)
+                z = z - om * apply_Dinv(apply_A(z))
+            return z
+
         smooth = self._make_smoother(apply_A, apply_Dinv, prep.cheby)
 
         def minv(r):
             # multiplicative two-grid: coarse correction, then smoothing
-            z = from_coarse(coarse_solve(to_coarse(r)))
+            z = coarse(r)
             return z + smooth(r - apply_A(z))
 
         def matvec(x):
             return minv(apply_A(x))
-
-        def coarse(r):
-            return from_coarse(coarse_solve(to_coarse(r)))
 
         return matvec, minv, {"apply_A": apply_A, "apply_Dinv": apply_Dinv,
                               "coarse": coarse, "minv": minv}
@@ -700,23 +816,114 @@ class NavierStokesSolver:
 
     def _solve_prepared(self, prep: Prep, rhs: torch.Tensor,
                         solver_cfg) -> GMRESResult:
-        """Left-preconditioned GMRES.  On the plane layout the Krylov space
+        """Left-preconditioned solve.  On the plane layout the Krylov space
         lives in plane-major vectors, converted in and out once per
         solve."""
-        if not isinstance(prep, (PlanePrep, SchurPrep)):
-            return self._solve_prepared_raw(prep, rhs, solver_cfg)
-        res = self._solve_prepared_raw(
-            prep, to_planes(rhs, prep.nb, prep.nbp), solver_cfg)
-        return res._replace(x=from_planes(res.x, prep.nb, prep.nbp))
+        inner = prep.inner if isinstance(prep, DeflatedPrep) else prep
+        shape = _plane_shape(inner)
+        if shape is not None:
+            rhs = to_planes(rhs, *shape)
+        if isinstance(prep, DeflatedPrep):
+            res = self._solve_deflated(inner, prep.U, prep.Q, rhs,
+                                       solver_cfg)
+        else:
+            res = self._solve_prepared_raw(prep, rhs, solver_cfg)
+        if shape is None:
+            return res
+        return res._replace(x=from_planes(res.x, *shape))
 
     def _solve_prepared_raw(self, prep: Prep, rhs: torch.Tensor,
                             solver_cfg) -> GMRESResult:
         matvec, b_prep, _ = self._prep_operators(prep)
-        return gmres(matvec, b_prep(rhs), restart=solver_cfg.restart,
+        b_eff = b_prep(rhs)
+        if solver_cfg.method == "cg":
+            # for SPD sub-problems; the NS saddle-point system itself is
+            # indefinite (use gmres)
+            res = cg(matvec, b_eff, rtol=solver_cfg.rtol,
+                     atol=solver_cfg.atol, maxiter=solver_cfg.maxiter)
+            return GMRESResult(x=res.x, iters=res.iters,
+                               resnorm=res.resnorm, converged=res.converged)
+        if solver_cfg.method == "ca_gmres":
+            # the Newton-basis shifts exist only for the constant exact
+            # Jacobian (built in _ensure_prepared): the Stokes solve runs
+            # before them and stays monomial, as in the JAX package
+            shifts = self._ca_shifts if solver_cfg.ca_basis == "newton" \
+                else None
+            return ca_gmres(matvec, b_eff, basis=min(solver_cfg.restart, 16),
+                            rtol=solver_cfg.rtol, atol=solver_cfg.atol,
+                            maxiter=solver_cfg.maxiter, shifts=shifts)
+        return gmres(matvec, b_eff, restart=solver_cfg.restart,
                      rtol=solver_cfg.rtol, atol=solver_cfg.atol,
                      maxiter=solver_cfg.maxiter,
                      cgs2_kernel=solver_cfg.cgs2 != "xla",
                      cgs2_compensated=solver_cfg.cgs2 == "pallas_comp")
+
+    # -- Krylov subspace recycling (solvers/deflation.py) ---------------------
+
+    def _arnoldi_rhs(self, prep, ones_if_zero: bool) -> torch.Tensor:
+        """The start vector of the preparation-time Arnoldi sweeps: the BC
+        value vector on the prep's layout."""
+        rhs = self.disc.bc.value.to(self.dtype)
+        if ones_if_zero and not float(torch.linalg.norm(rhs)):
+            rhs = torch.ones_like(rhs)
+        shape = _plane_shape(prep)
+        return rhs if shape is None else to_planes(rhs, *shape)
+
+    def _build_deflation(self, prep) -> DeflatedPrep:
+        """Wrap a prepared operator with a GCRO recycled pair: one m-step
+        Arnoldi on the preconditioned operator (on the device), the
+        harmonic Ritz extraction on the host, (U, Q) on the device."""
+        cfgk = self.cfg.krylov
+        rhs = self._arnoldi_rhs(prep, ones_if_zero=False)
+        m = min(cfgk.deflation_arnoldi or max(3 * cfgk.deflation_k, 48),
+                rhs.shape[0] - 2)
+        k = min(cfgk.deflation_k, max(m - 2, 1))
+        matvec, b_prep, _ = self._prep_operators(prep)
+        V, H = arnoldi(matvec, b_prep(rhs), m)
+        Y = torch.as_tensor(harmonic_ritz_basis(H.cpu().numpy(), k)).to(
+            self.device, self.dtype)
+        U, Q = recycle_space(V, H, Y)
+        return DeflatedPrep(prep, U, Q)
+
+    def _solve_deflated(self, prep, U: torch.Tensor, Q: torch.Tensor,
+                        rhs: torch.Tensor, solver_cfg) -> GMRESResult:
+        """GMRES in the orthogonal complement of the recycled space, then
+        the exact correction of the recycled directions.  The inner
+        residual is the true preconditioned residual, so the target is
+        rtol * ||b_eff||, the undeflated norm, as in the plain solve: a
+        target relative to ||r0|| = ||(I - Q Q^T) b_eff|| would be far
+        stricter (the JAX package measured early steps running to maxiter,
+        benchlogs/transient_scaling.txt)."""
+        sc = self._sc
+        matvec, b_prep, _ = self._prep_operators(prep)
+        b_eff = b_prep(rhs)
+        c0 = Q @ b_eff
+        r0 = b_eff - Q.T @ c0
+
+        def matvec_defl(x):
+            w = matvec(x)
+            return w - Q.T @ (Q @ w)
+
+        b_norm = sc(torch.linalg.norm(b_eff).item())
+        res = gmres(matvec_defl, r0, restart=solver_cfg.restart, rtol=0.0,
+                    atol=float(max(sc(solver_cfg.rtol) * b_norm,
+                                   sc(solver_cfg.atol))),
+                    maxiter=solver_cfg.maxiter,
+                    cgs2_kernel=solver_cfg.cgs2 != "xla",
+                    cgs2_compensated=solver_cfg.cgs2 == "pallas_comp")
+        # x = y + U (Q^T (b - T y)): one more T apply per solve
+        a = c0 - Q @ matvec(res.x)
+        return res._replace(x=res.x + U.T @ a)
+
+    def _build_ca_shifts(self, prep, s: int) -> tuple:
+        """Leja-ordered Newton-basis shifts for ca_gmres: one m-step
+        Arnoldi sweep on the preconditioned constant operator, Ritz values
+        and Leja order on the host (`solvers/sstep.newton_shifts`)."""
+        rhs = self._arnoldi_rhs(prep, ones_if_zero=True)
+        m = min(max(2 * s, 32), rhs.shape[0] - 2)
+        matvec, b_prep, _ = self._prep_operators(prep)
+        _, H = arnoldi(matvec, b_prep(rhs), m)
+        return newton_shifts(H.cpu().numpy(), s)
 
     # -- Stokes initialization -----------------------------------------------
 
@@ -744,8 +951,17 @@ class NavierStokesSolver:
     # -- Newton time step ----------------------------------------------------
 
     def _residual_fn(self, u_old: torch.Tensor):
-        """u -> A_lin u - (M/dt) u_old on the residual operators' layout;
-        (M/dt) u_old is fixed for the step and applied once."""
+        """u -> F(u): with residual='operator' A_lin u - (M/dt) u_old on
+        the residual operators' layout ((M/dt) u_old is fixed for the step
+        and applied once); otherwise the element-wise residual."""
+        if self.cfg.residual != "operator":
+            d, cfg = self.disc, self.cfg
+
+            def element_residual(u):
+                return assemble_residual(d.tets, d.vol, d.grad, d.h, u,
+                                         u_old, cfg.dt, cfg.reynolds,
+                                         cfg.delta, ndof=d.ndof)
+            return element_residual
         res_A, res_M = self._res_A, self._res_M
         if self._plane:
             noffs, nb, nbp = self._noffs, self.disc.nv, self._nbp
@@ -765,10 +981,17 @@ class NavierStokesSolver:
             return self._spmv(offs, res_A, u) - mass_uold
         return scalar_residual
 
+    def _reference_jacobian(self, u: torch.Tensor) -> torch.Tensor:
+        """jacobian='reference': J = J_linear + the convection terms at u
+        in DIA form, BC rows zeroed."""
+        UL, _ = local_fields(self.disc.tets, u)
+        jnl = self._assemble_dia(NONLINEAR_TERMS, self.cfg.reynolds, UL=UL)
+        return zero_rows_dia(self.disc.dia_pattern.offsets, self._jlin + jnl,
+                             self.disc.bc.is_bc)
+
     def _newton_step(self, u_init, u_old, delta_u_init):
         cfg, nw, sc = self.cfg, self.cfg.newton, self._sc
         dtype = self.dtype
-        prep = self._exact_prep
         is_bc = self.disc.bc.is_bc
         bc_value = self.disc.bc.value.to(dtype)
         zero = torch.zeros((), dtype=dtype, device=self.device)
@@ -794,9 +1017,23 @@ class NavierStokesSolver:
         du_h = np.full(max_newton, np.nan, dtype=sc)
         res_h[0], du_h[0] = rn0, dun0
         it, lin_total, stagnated = 0, 0, False
+        seconds = []
         while it < max_newton and not converged and not stagnated:
             prev_rn = res_h[it]
+            if self._reference:
+                t0 = time.perf_counter()
+                jac = self._reference_jacobian(u)
+                _sync(self.device)
+                t1 = time.perf_counter()
+                prep = self._prepare_operator_dia(jac)
+                _sync(self.device)
+                t2 = time.perf_counter()
+            else:
+                prep = self._exact_prep
             sol = self._solve_prepared(prep, -F, cfg.krylov)
+            if self._reference:
+                _sync(self.device)
+                seconds.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
             u, delta_u = u + sol.x, sol.x
             lin_total += sol.iters
             u, F, rn, dn = check(u, delta_u)
@@ -805,14 +1042,17 @@ class NavierStokesSolver:
                 res_h[it], du_h[it] = rn, dn
             converged = bool(((rn < rtol * rn0) or (rn < atol))
                              and (dn < du_tol))
-            # stagnation: tiny update, or (f32 only) no residual progress
+            # stagnation: tiny update, or (f32 only) no residual progress;
+            # in float64 reference mode Newton is a fixed-point iteration
+            # whose progress may be slower than 10% per iteration
             stagnated = bool(it > 5 and dn < sc(nw.stol))
             if dtype == torch.float32:
                 stagnated = stagnated or bool(it > 2
                                               and rn >= sc(0.9) * prev_rn)
         stats = NewtonStats(iters=min(it + 1, max_newton),
                             converged=converged, res_hist=res_h,
-                            du_hist=du_h, lin_iters=lin_total)
+                            du_hist=du_h, lin_iters=lin_total,
+                            seconds=tuple(seconds))
         return u, delta_u, stats
 
     def step(self, u, u_old, delta_u):

@@ -34,3 +34,9 @@ def block4_inverse(blocks: torch.Tensor, pivot_eps: float = 0.0,
         factors[:, k] = 0.0
         aug = aug - factors[:, :, None] * row[:, None, :]
     return aug[:, :, 4:].reshape(blocks.shape)
+
+
+def block4_apply(blocks: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal apply: (nb, 4, 4) blocks times an interleaved (4 nb,)
+    vector."""
+    return (blocks @ x.reshape(-1, 4, 1)).reshape(-1)

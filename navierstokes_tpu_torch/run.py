@@ -13,6 +13,12 @@
         --checkpoint ck.npz --checkpoint-every 2 --profile
     python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 4 \
         --resume ck.npz
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 3 \
+        --preconditioner two_level --coarse-basis linear --coarse-agg 128
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 2 \
+        --ca-gmres --ca-basis newton --restart 12
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 2 \
+        --deflation-k 16
 
 Runs on one device (`--device`, default `cuda`; `cpu` runs the kernels'
 plain PyTorch versions).  As in the JAX CLI, `--dtype` defaults to float32
@@ -73,16 +79,9 @@ class RunOutput:
 _KRYLOV_FLAGS = ("spmv", "preconditioner", "neumann_order", "coarse_agg",
                  "coarse_ml_smooth", "coarse_ml_cycles", "coarse_ml_damp",
                  "coarse_smooth_omega", "coarse_basis", "coarse_cheby",
-                 "coarse_cheby_fraction", "schur_cheby", "schur_v_cheby",
-                 "schur_shape", "restart", "cgs2")
-
-# Flags of the JAX CLI whose slices are not ported: set, they raise.
-_NOT_PORTED = {
-    "deflation_k": ("--deflation-k", 13, "deflation"),
-    "deflation_arnoldi": ("--deflation-arnoldi", 13, "deflation"),
-    "ca_gmres": ("--ca-gmres", 12, "CA-GMRES"),
-    "ca_basis": ("--ca-basis", 12, "CA-GMRES"),
-}
+                 "coarse_cheby_fraction", "ca_basis", "schur_cheby",
+                 "schur_v_cheby", "schur_shape", "restart", "cgs2",
+                 "deflation_k", "deflation_arnoldi")
 
 
 def main(argv=None) -> Optional[RunOutput]:
@@ -120,7 +119,9 @@ def main(argv=None) -> Optional[RunOutput]:
                    choices=["auto", "block_jacobi", "two_level", "schur",
                             "ilu0", "none"],
                    help="auto (the f32 default) = two_level + coarse_cheby=3 "
-                        "up to 150k rows, schur + schur_v_cheby=2 above")
+                        "up to 150k rows, schur + schur_v_cheby=2 above; "
+                        "ilu0 and none raise (the JAX package runs "
+                        "block-Jacobi under both names)")
     p.add_argument("--neumann-order", type=int, default=None,
                    help="Neumann-series boost of block-Jacobi")
     p.add_argument("--coarse-agg", type=int, default=None,
@@ -132,12 +133,14 @@ def main(argv=None) -> Optional[RunOutput]:
     p.add_argument("--coarse-ml-damp", type=float, default=None,
                    help="damping of the level-1 Jacobi sweeps")
     p.add_argument("--coarse-smooth-omega", type=float, default=None,
-                   help="smoothed-aggregation prolongator damping (not "
-                        "ported: slice 10)")
+                   help="smoothed-aggregation prolongator damping "
+                        "(0 = plain aggregation; two_level, dense coarse "
+                        "only)")
     p.add_argument("--coarse-basis", default=None,
                    choices=["const", "linear"],
-                   help="coarse basis per aggregate (linear is not ported: "
-                        "slice 10)")
+                   help="coarse basis per aggregate: piecewise constant, or "
+                        "orthonormalized {1,x,y,z} (two_level with --spmv "
+                        "plane, dense coarse only)")
     p.add_argument("--coarse-cheby", type=int, default=None,
                    help="two_level post-smoother: degree-d Chebyshev sweep "
                         "in D^{-1}A (0 = one Jacobi application)")
@@ -171,23 +174,25 @@ def main(argv=None) -> Optional[RunOutput]:
                    help="checkpoint to go on from (skips the Stokes solve)")
     p.add_argument("--profile", action="store_true",
                    help="print an event-log report at the end")
-    # Flags of the JAX CLI whose slices are not ported yet: they raise.
+    p.add_argument("--deflation-k", type=int, default=None,
+                   help="GCRO recycled-subspace size (harmonic Ritz "
+                        "vectors of the constant preconditioned operator; "
+                        "0 = off)")
+    p.add_argument("--deflation-arnoldi", type=int, default=None,
+                   help="Arnoldi length of the recycle setup (0 = "
+                        "max(3k, 48))")
+    p.add_argument("--ca-gmres", action="store_true",
+                   help="the s-step (communication-avoiding) GMRES, basis "
+                        "min(restart, 16)")
+    p.add_argument("--ca-basis", default=None,
+                   choices=["monomial", "newton"],
+                   help="ca_gmres basis: monomial, or the Leja-ordered "
+                        "Newton basis (the float32-stable one)")
+    # The one flag of the JAX CLI whose slice is not ported yet: it raises.
     p.add_argument("--devices", type=int, default=0,
                    help=">1: distributed solver (not ported)")
-    p.add_argument("--deflation-k", type=int, default=None,
-                   help="(not ported)")
-    p.add_argument("--deflation-arnoldi", type=int, default=None,
-                   help="(not ported)")
-    p.add_argument("--ca-gmres", action="store_true", help="(not ported)")
-    p.add_argument("--ca-basis", default=None,
-                   choices=["monomial", "newton"], help="(not ported)")
     args = p.parse_args(argv)
 
-    for name, (what, slice_no, title) in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(
-                f"{what} is not ported to navierstokes_tpu_torch yet "
-                f"(ROADMAP slice {slice_no}: {title})")
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 is not ported to navierstokes_tpu_torch yet "
@@ -243,6 +248,8 @@ def main(argv=None) -> Optional[RunOutput]:
         stokes = SolverConfig(rtol=1e-12, atol=1e-12, maxiter=2000)
     overrides = {field: getattr(args, field) for field in _KRYLOV_FLAGS
                  if getattr(args, field) is not None}
+    if args.ca_gmres:
+        overrides["method"] = "ca_gmres"
     krylov = dataclasses.replace(krylov, **overrides)
     stokes = dataclasses.replace(stokes, **overrides)
     cfg = NSConfig(

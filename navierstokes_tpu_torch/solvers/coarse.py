@@ -9,6 +9,14 @@ one (nc, nc) GEMV and a broadcast prolongation), or, when nc exceeds
 and solved by a two-grid cycle one level down (the multilevel path).
 Restriction and prolongation exist for the component-plane layout
 (`*_planes`) and for interleaved vectors (`restrict`, `prolong`).
+
+Two variants of the dense coarse level, both built on the host in float64:
+the per-aggregate linear basis {1, x, y, z} (`build_linear_weights`,
+`linear_coarse_inverse_dia`, `*_planes_linear`: 16 coarse DoF per
+aggregate, the plane layout only) and smoothed aggregation, the
+Petrov-Galerkin product of P = (I - omega D^{-1}A) P0 and R = P0^T
+(`smoothed_coarse_inverse_dia`; the model applies P on the fly).  The
+block-CSR form `coarse_operator_inverse` serves the host oracles.
 """
 
 from __future__ import annotations
@@ -173,3 +181,208 @@ def coarse_operator_inverse_dia(cs: CoarseSpace, offsets: tuple,
     ac = coarse_dense_matrix(cs, offsets, data, shift=shift)
     inv = np.linalg.inv(ac.cpu().numpy().astype(np.float64))
     return torch.as_tensor(inv, device=data.device).to(data.dtype)
+
+
+def build_linear_weights(cs: CoarseSpace, coords: np.ndarray) -> np.ndarray:
+    """(4, nb_pad) per-aggregate orthonormal linear basis weight planes.
+
+    Mode m's weight on node i is Q[i//agg][i%agg, m], with Q the
+    per-aggregate QR orthonormalization of [1, x - x_bar, y - y_bar,
+    z - z_bar] over the aggregate's nodes (coordinates in operator row
+    order).  Padding rows (>= nb) and rank-deficient modes (degenerate
+    aggregate geometry, or fewer than 4 nodes) carry zero weight; the
+    Galerkin builder pins their coarse diagonal."""
+    nb, agg, n_agg, nb_pad = cs.nb, cs.agg_size, cs.n_agg, cs.nb_pad
+    M = np.zeros((nb_pad, 4))
+    M[:nb, 0] = 1.0
+    M[:nb, 1:] = np.asarray(coords, dtype=np.float64)[:nb]
+    M = M.reshape(n_agg, agg, 4)
+    cnt = np.maximum(M[:, :, 0].sum(1), 1.0)
+    for d in range(1, 4):
+        mean = M[:, :, d].sum(1) / cnt
+        M[:, :, d] -= mean[:, None]
+        M[:, :, d] *= M[:, :, 0]           # re-zero padding rows
+    Q, R = np.linalg.qr(M)                 # batched reduced: min(agg, 4) cols
+    rd = np.abs(np.diagonal(R, axis1=1, axis2=2))
+    bad = rd < 1e-10 * np.maximum(rd.max(1, keepdims=True), 1e-300)
+    Q = np.where(bad[:, None, :], 0.0, Q)
+    if Q.shape[2] < 4:                     # the missing modes are inert
+        Q = np.concatenate([Q, np.zeros((n_agg, agg, 4 - Q.shape[2]))],
+                           axis=2)
+    return np.ascontiguousarray(Q.transpose(2, 0, 1).reshape(4, nb_pad))
+
+
+def _pin_inert(out: np.ndarray, shift: float) -> np.ndarray:
+    """Pin the diagonal of inert coarse DoF (zero weight columns, padding
+    aggregates) so the inverse exists (their restricted residual is zero,
+    so they add no correction), then add the shift."""
+    nc = out.shape[0]
+    out[np.diag_indices(nc)] += np.where(np.abs(np.diagonal(out)) <= 1e-300,
+                                         1.0, 0.0)
+    if shift:
+        out[np.diag_indices(nc)] += shift
+    return out
+
+
+def _host_blocks(offsets: tuple, data: torch.Tensor, nb: int) -> tuple:
+    """(node offsets, the (N_D, nb, 4, 4) block view) of DIA data, on the
+    host in the data's dtype."""
+    from navierstokes_tpu_torch.ops.plane_dia import node_offsets_from_scalar
+    from navierstokes_tpu_torch.solvers.schur import node_block_view
+
+    noffs = node_offsets_from_scalar(offsets)
+    return noffs, node_block_view(offsets, data.cpu().numpy(), nb, noffs)
+
+
+def linear_coarse_dense_matrix(cs: CoarseSpace, offsets: tuple,
+                               dia_data: torch.Tensor, w: np.ndarray, *,
+                               shift: float = 0.0) -> np.ndarray:
+    """Dense Galerkin A_c = P^T A P (host, float64) for the linear basis:
+    P[4i+a, 16 g + 4 m + a] = w[m, i] for g = i//agg, so the coarse DoF are
+    aggregate-major, then mode, then component.  For each node offset D
+    and mode pair (m, m'), the weighted block plane w[m, i] A_blk[D, i, a,
+    b] w[m', i+D] goes onto coarse diagonals (`agg_diag_add`, dof=16)."""
+    from navierstokes_tpu_torch.solvers.schur import agg_diag_add
+
+    nb, agg, n_agg = cs.nb, cs.agg_size, cs.n_agg
+    nc = 16 * n_agg
+    noffs, A_blk = _host_blocks(offsets, dia_data, nb)
+    wf = np.asarray(w, dtype=np.float64)
+    ac = np.zeros(nc * nc, dtype=np.float64)
+    vbuf = np.zeros(cs.nb_pad, dtype=np.float64)
+    for iD, D in enumerate(noffs):
+        lo, hi = max(0, -D), nb - max(0, D)
+        if hi <= lo:
+            continue
+        blk = A_blk[iD, lo:hi].astype(np.float64)
+        for m in range(4):
+            for mp in range(4):
+                M2 = blk * (wf[m, lo:hi, None, None]
+                            * wf[mp, lo + D:hi + D, None, None])
+                for a in range(4):
+                    for b in range(4):
+                        vbuf[:] = 0.0
+                        vbuf[lo:hi] = M2[:, a, b]
+                        agg_diag_add(ac, vbuf, D, 4 * m + a, 4 * mp + b,
+                                     n_agg, agg, nc, dof=16)
+    return _pin_inert(ac.reshape(nc, nc), shift)
+
+
+def linear_coarse_inverse_dia(cs: CoarseSpace, offsets: tuple,
+                              dia_data: torch.Tensor, w: np.ndarray, *,
+                              shift: float = 0.0) -> torch.Tensor:
+    """The host float64 inverse of the linear-basis coarse matrix, in the
+    data's dtype on its device."""
+    ac = linear_coarse_dense_matrix(cs, offsets, dia_data, w, shift=shift)
+    return torch.as_tensor(np.linalg.inv(ac)).to(dia_data.device,
+                                                  dia_data.dtype)
+
+
+def restrict_planes_linear(cs: CoarseSpace, rp: torch.Tensor, nbp: int,
+                           w: torch.Tensor) -> torch.Tensor:
+    """P^T r on a plane-major padded fine vector -> (16 n_agg,) coarse, in
+    the order of `linear_coarse_dense_matrix`."""
+    if cs.nb_pad > nbp:
+        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
+                         f"layout's nbp={nbp}")
+    r3 = rp.reshape(4, nbp)[:, :cs.nb_pad].reshape(4, cs.n_agg, cs.agg_size)
+    w3 = w.reshape(4, cs.n_agg, cs.agg_size)
+    return torch.einsum("cgp,mgp->gmc", r3, w3).reshape(-1)
+
+
+def prolong_planes_linear(cs: CoarseSpace, zc: torch.Tensor, nbp: int,
+                          nb: int, w: torch.Tensor) -> torch.Tensor:
+    """P zc: (16 n_agg,) coarse -> plane-major padded fine vector, with the
+    padding rows nb..nbp kept at exact zero."""
+    if cs.nb_pad > nbp:
+        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
+                         f"layout's nbp={nbp}")
+    zf = torch.einsum("gmc,mgp->cgp", zc.reshape(cs.n_agg, 4, 4),
+                      w.reshape(4, cs.n_agg, cs.agg_size))
+    out = torch.zeros((4, nbp), dtype=zc.dtype, device=zc.device)
+    out[:, :nb] = zf.reshape(4, cs.nb_pad)[:, :nb]
+    return out.reshape(-1)
+
+
+def smoothed_coarse_dense_matrix(cs: CoarseSpace, offsets: tuple,
+                                 dia_data: torch.Tensor,
+                                 inv_diag: torch.Tensor, *, omega: float,
+                                 shift: float = 0.0) -> np.ndarray:
+    """Dense Petrov-Galerkin coarse matrix (host, float64) of smoothed
+    aggregation:
+
+        P = (I - omega D^{-1} A) P0,   R = P0^T
+        A_c = P0^T A P0 - omega P0^T (A D^{-1} A) P0
+
+    On the node-block band, A D^{-1} A regroups as N_D^2 batched 4x4 block
+    products, each added onto coarse diagonals.  The JAX package measured
+    it worse than plain aggregation on this indefinite operator (3x the
+    iterations in float64 at matrix 3, no convergence at 117k rows, for
+    every omega in {0.5, 0.6667, 1.0}); it is kept for parity."""
+    from navierstokes_tpu_torch.solvers.schur import agg_diag_add
+
+    nb, agg, n_agg, nc = cs.nb, cs.agg_size, cs.n_agg, cs.nc
+    noffs, A_blk = _host_blocks(offsets, dia_data, nb)
+    di = inv_diag.cpu().numpy()
+    C_blk = np.matmul(di[None], A_blk)                 # D^{-1} A, per offset
+    ac = np.zeros(nc * nc, dtype=np.float64)
+    vbuf = np.zeros(cs.nb_pad, dtype=np.float64)
+    for iD, D in enumerate(noffs):                     # P0^T A P0
+        for a in range(4):
+            for c in range(4):
+                vbuf[:nb] = A_blk[iD, :, a, c]
+                agg_diag_add(ac, vbuf, D, a, c, n_agg, agg, nc)
+    ac1 = np.zeros(nc * nc, dtype=np.float64)
+    for iD1, D1 in enumerate(noffs):                   # P0^T (A D^-1 A) P0
+        lo, hi = max(0, -D1), nb - max(0, D1)
+        if hi <= lo:
+            continue
+        A1 = A_blk[iD1, lo:hi]
+        for iD2, D2 in enumerate(noffs):
+            M = np.matmul(A1, C_blk[iD2, lo + D1:hi + D1])
+            for a in range(4):
+                for c in range(4):
+                    vbuf[:] = 0.0
+                    vbuf[lo:hi] = M[:, a, c]
+                    agg_diag_add(ac1, vbuf, D1 + D2, a, c, n_agg, agg, nc)
+    out = (ac - omega * ac1).reshape(nc, nc)
+    if shift:
+        out[np.diag_indices(nc)] += shift
+    return out
+
+
+def smoothed_coarse_inverse_dia(cs: CoarseSpace, offsets: tuple,
+                                dia_data: torch.Tensor,
+                                inv_diag: torch.Tensor, *, omega: float,
+                                shift: float = 0.0) -> torch.Tensor:
+    """The host float64 inverse of the smoothed-aggregation coarse matrix,
+    in the data's dtype on its device."""
+    ac = smoothed_coarse_dense_matrix(cs, offsets, dia_data, inv_diag,
+                                      omega=omega, shift=shift)
+    return torch.as_tensor(np.linalg.inv(ac)).to(dia_data.device,
+                                                  dia_data.dtype)
+
+
+def coarse_operator_inverse(cs: CoarseSpace, bcsr_values: torch.Tensor,
+                            row_ids, col_indices, *,
+                            shift: float = 0.0) -> torch.Tensor:
+    """Dense inverse of A_c = R A P from block-CSR values (nnzb, 4, 4) and
+    their block coordinates; `shift` regularizes the coarse pressure
+    block.  A_c is added in a fixed order and inverted in the values'
+    dtype, as in the JAX package."""
+    nc = cs.nc
+    dev = bcsr_values.device
+    agg_i = torch.as_tensor(np.asarray(row_ids) // cs.agg_size,
+                            dtype=torch.int64, device=dev)
+    agg_j = torch.as_tensor(np.asarray(col_indices) // cs.agg_size,
+                            dtype=torch.int64, device=dev)
+    a4 = torch.arange(4, device=dev)
+    rows = (4 * agg_i)[:, None, None] + a4[None, :, None]
+    cols = (4 * agg_j)[:, None, None] + a4[None, None, :]
+    flat = torch.zeros(nc * nc, dtype=bcsr_values.dtype, device=dev)
+    index_add_fixed_order(flat, (rows * nc + cols).reshape(-1),
+                          bcsr_values.reshape(-1))
+    ac = flat.reshape(nc, nc)
+    if shift:
+        ac = ac + shift * torch.eye(nc, dtype=ac.dtype, device=dev)
+    return torch.linalg.inv(ac)

@@ -1,4 +1,9 @@
-from navierstokes_tpu_torch.sparse.bcsr import bcsr_pattern_from_coo
+from navierstokes_tpu_torch.sparse.bcsr import (
+    BCSR4,
+    bcsr_from_coo,
+    bcsr_matvec,
+    bcsr_pattern_from_coo,
+)
 from navierstokes_tpu_torch.sparse.dia import (
     DIAPattern,
     ScalarDIA,
@@ -10,6 +15,9 @@ from navierstokes_tpu_torch.sparse.dia import (
 )
 
 __all__ = [
+    "BCSR4",
+    "bcsr_from_coo",
+    "bcsr_matvec",
     "bcsr_pattern_from_coo",
     "DIAPattern",
     "ScalarDIA",

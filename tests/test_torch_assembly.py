@@ -61,11 +61,13 @@ def test_element_matrices_golden(golden_elements, golden_inputs, case):
 
 
 def test_unknown_element_terms_raise():
+    """An element term outside `ELEMENT_TERMS` raises (the convection
+    terms are ported: tests/test_torch_elements.py)."""
     a = torch.eye(4, 3, dtype=torch.float64)[None]
     vol, grad, h = el.element_geometry(a)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(ValueError, match="unknown element terms"):
         el.element_node_blocks(grad, vol, h, 1.0, 1.0, 0.1,
-                               terms=frozenset({"convection"}))
+                               terms=frozenset({"advection"}))
 
 
 @pytest.mark.parametrize("name,terms", [
