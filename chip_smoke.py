@@ -123,8 +123,38 @@ Phases, in order; any failure raises and the script exits non-zero:
      (g) CG on the matrix-6 pressure block + 0.1 I through K1's 1x1 form
          against the CPU solve at rel 1e-9; GMRES at matrix 3 with the
          ILU(0) host oracle against block-Jacobi (K2 matvec);
-then each phase's wall seconds, the launches of the solver-option paths,
-the kernel summary line and, last, the device line.
+then distribution (ROADMAP slice 15), four shards on the one card:
+ (h) K1 and K2 in their ghost-row forms: matrix 6 cut into 4 shards (and
+     8 for K1), K1 4x4 f32 and f64 and 3x3 f32 (both routes where they
+     fit), K2 A (81 diagonals) and S (123) f32 and f64, D^-1 (7) and A in
+     bf16 with f32 x: every shard's rows equal the rows of one launch on
+     the whole vector bit for bit and match the plain version within the
+     bars of phases 3-4, also on random data with nonzero ghost rows; one
+     interior shard timed flushed and L2-warm beside its plain version,
+     cuSPARSE CSR on the shard's rows with their ghost columns, the
+     shard's bound and the whole-matrix launch; the stored ghost width,
+     the route and the plan printed;
+ (i) `parallel.dryrun.dryrun_multichip(4, cuda:0)` (one f32 step, K1's
+     ghost-row form) and `dryrun_wide(4, cuda:0)` (matrix 4 in f64: one
+     step from one shared Stokes state against one device, rel < 1e-8,
+     Newton equal, GMRES within 2);
+ (j) the main distributed path: matrix 6 at the CLI's f32 defaults over 4
+     shards, Stokes + 3 steps through `DistributedNavierStokesSolver`:
+     'auto' resolves to plain two_level 'tlp' (with its warning), Newton
+     <= 3, no plain call, the physics checks, K1 ghost-row launches per
+     step; against the single-device solver at the same resolved config:
+     Newton equal, mean GMRES within 0.8x-1.25x, states within rel 1e-4,
+     both step times printed;
+ (k) the scalar paths over 4 shards at matrix 6: the f64 CLI default 'bj'
+     and 'tl' f32 (spmv='pallas'), Stokes + 2 steps each, K2's ghost-row
+     form counted, 'tl' beside one device at the same resolved config
+     (Newton equal, mean GMRES within 0.8x-1.25x); then CA-GMRES ('bj', neumann_order=0) on channel(64, 2,
+     2), whose basis is the one-exchange power sweep (each sweep one K2
+     ghost-row launch on the extended window): one solve of the first
+     Newton system on the card and on the CPU from one state, GMRES
+     within 1, solutions within rel 1e-6;
+then each phase's wall seconds, the launches of the solver-option and the
+distributed paths, the kernel summary line and, last, the device line.
 """
 
 from __future__ import annotations
@@ -172,6 +202,9 @@ from navierstokes_tpu_torch.ops import dia as dia_ops
 from navierstokes_tpu_torch.ops import grid_sync, mpk, mpk_fused
 from navierstokes_tpu_torch.ops import plane_dia as pd
 from navierstokes_tpu_torch.ops.block import block4_inverse
+from navierstokes_tpu_torch.parallel import DistributedNavierStokesSolver
+from navierstokes_tpu_torch.parallel import dryrun
+from navierstokes_tpu_torch.parallel import partitioned as tpart
 from navierstokes_tpu_torch.solvers import precond
 from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import build_aggregates
@@ -203,7 +236,15 @@ KERNELS = {
                      "navierstokes_tpu/ops/cgs2_pallas.py:132"),
     "spmpv_dia": ("mpk", "navierstokes_tpu_torch/csrc/mpk.cu",
                   "navierstokes_tpu/ops/mpk_pallas.py:69"),
+    # the ghost-row forms (x_prehalo=True: spmv_plane_pallas :225 and
+    # spmv_dia_pallas :123 on pretiled data) of the same kernels
+    "plane_spmv_halo": ("plane_dia",
+                        "navierstokes_tpu_torch/csrc/plane_dia.cu",
+                        "navierstokes_tpu/ops/plane_dia.py:113"),
+    "dia_spmv_halo": ("dia", "navierstokes_tpu_torch/csrc/dia.cu",
+                      "navierstokes_tpu/ops/pallas_dia.py:53"),
 }
+CPU = torch.device("cpu")
 BARS = {torch.float32: 1e-5, torch.float64: 1e-12}
 CLI_DEVICE = "cuda"         # the --device of every run.main call
 
@@ -1144,9 +1185,11 @@ def counters() -> dict:
     return {"K1": pd.kernel_launches,
             "K1 tiled": pd.route_launches["tiled"],
             "K1 rows": pd.route_launches["rows"],
+            "K1 halo": pd.halo_launches,
             "K1 forms": dict(pd.form_launches),
             "K1 plain": pd.plain_calls,
             "K2": dia_ops.kernel_launches,
+            "K2 halo": dia_ops.halo_launches,
             "K2 forms": dict(dia_ops.form_launches),
             "K2 plain": dia_ops.plain_calls,
             "K3": k3_ops.kernel_launches, "K3 plain": k3_ops.plain_calls,
@@ -1204,8 +1247,13 @@ def drive(label: str, argv: list, n_steps: int, max_newton=3,
 
 
 def check_physics(out) -> None:
-    mesh = out.solver.disc.mesh
-    u = out.u.detach().cpu().numpy()
+    check_state(out.solver.disc.mesh, out.u)
+
+
+def check_state(mesh, u) -> None:
+    """The repo's physics checks on a state: finite, the inlet profile and
+    the obstacle's zero velocity exact, downstream flow."""
+    u = u.detach().cpu().numpy()
     if u.shape != (4 * mesh.nv,) or not np.all(np.isfinite(u)):
         raise AssertionError("state is not finite or has the wrong shape")
     u4 = u.reshape(-1, 4)
@@ -2139,6 +2187,436 @@ def cg_ilu_phase(dev, matrix_id: int = 6, ilu_matrix: int = 3) -> dict:
             "ILU its": ri.iters, "BJ its": rj.iters}
 
 
+# --- distribution (ROADMAP slice 15): phases (h)-(k) ------------------------
+
+SHARDS = 4
+
+
+def shard_csr(offsets, data, halo: int):
+    """One shard's scalar-DIA rows (K, L) against its ghosted x window
+    (L + 2 halo) as CSR: entry (i, halo + i + off)."""
+    k, L = data.shape
+    i = torch.arange(L, device=data.device)
+    rows = torch.cat([i] * k)
+    cols = torch.cat([i + halo + d for d in offsets])
+    return csr_from_coo(rows, cols, data.reshape(-1), (L, L + 2 * halo))
+
+
+def shard_plane_csr(noffs, planes, n_in: int, halo: int):
+    """One shard's plane rows (n_out, n_in * N_D, Lb) against its ghosted
+    plane-major x window (n_in * (Lb + 2 halo)) as CSR."""
+    n_out, _, Lb = planes.shape
+    w = Lb + 2 * halo
+    i = torch.arange(Lb, device=planes.device)
+    rows, cols, vals = [], [], []
+    for a in range(n_out):
+        for j, (b, d) in enumerate(pd.plane_terms(noffs, n_in)):
+            rows.append(a * Lb + i)
+            cols.append(b * w + halo + i + d)
+            vals.append(planes[a, j])
+    return csr_from_coo(torch.cat(rows), torch.cat(cols), torch.cat(vals),
+                        (n_out * Lb, n_in * w))
+
+
+def halo_k1_phase(dev, mesh, pat, data64, flush) -> dict:
+    """(h), K1: matrix 6 cut into 4 and 8 shards, every shard's ghost-row
+    launch against the rows of one launch on the whole vector (bit for bit,
+    each route where both fit) and its plain version (within the bars of
+    phase 3), also on random data with nonzero ghost rows; one interior
+    shard timed beside its plain version, cuSPARSE on the shard's rows with
+    their ghost columns, its bound and the whole-matrix launch."""
+    noffs = pd.node_offsets_from_scalar(pat.offsets)
+    nb, n_d = mesh.nv, len(noffs)
+    sel3 = [iD * 4 + b for iD in range(n_d) for b in range(3)]
+    rng = np.random.default_rng(2091)
+    summary = {}
+    for P, forms in ((4, (("4x4", torch.float32), ("4x4", torch.float64),
+                          ("3x3", torch.float32))),
+                     (8, (("4x4", torch.float32),))):
+        for form, dtype in forms:
+            n_in = int(form[0])
+            bar = BARS[dtype]
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            Lb = tpart.plane_shard_nodes(nb, noffs, P, 48, itemsize)
+            nbp = P * Lb
+            p4 = pd.extract_planes(pat.offsets, data64, nb,
+                                   node_offsets=noffs, nbp=nbp)
+            planes = (p4 if n_in == 4 else p4[:3][:, sel3]).to(dtype)
+            planes = planes.contiguous()
+            g = pd.ghost_width(noffs, itemsize)
+            x = torch.zeros((n_in, nbp), dtype=dtype, device=dev)
+            x[:, :nb] = torch.as_tensor(rng.standard_normal((n_in, nb)),
+                                        dtype=dtype, device=dev)
+            shards = tpart.split_rows(planes, Lb, [dev] * P).parts
+            windows = [w.reshape(-1).contiguous() for w in tpart.exchange(
+                tpart.split_rows(x, Lb, [dev] * P).parts, g)]
+            live = tpart.shard_rows(nb, Lb, P)
+            label = f"K1 {form} {str(dtype)[6:]} with ghost rows, {P} shards"
+            routes = [r for r in pd.ROUTES if r == "rows" or (
+                pd.tiled_plan(noffs, planes, x.reshape(-1), n_in)
+                and pd.tiled_plan(noffs, shards[1], windows[1], n_in,
+                                  halo=g))]
+            chosen = pd.plane_route(noffs, shards[1], windows[1], n_in,
+                                    halo=g)
+            errs = {}
+            for route in routes:
+                whole = pd.spmv_planes_cuda(noffs, planes, x.reshape(-1),
+                                            n_in=n_in, nb=nb, route=route)
+                got = torch.cat([pd.spmv_planes_cuda(
+                    noffs, p, w, n_in=n_in, nb=n, route=route, halo=g
+                ).reshape(-1, Lb) for p, w, n in zip(shards, windows, live)],
+                    dim=1)
+                if not torch.equal(got, whole.reshape(-1, nbp)):
+                    raise AssertionError(f"{label} {route}: shard rows differ "
+                                         "from the whole-vector launch")
+                ref = torch.cat([pd.spmv_planes_plain(
+                    noffs, p, w, n_in=n_in, nb=n, halo=g).reshape(-1, Lb)
+                    for p, w, n in zip(shards, windows, live)], dim=1)
+                rel = float(torch.linalg.norm(got - ref)
+                            / torch.linalg.norm(ref))
+                if rel > bar:
+                    raise AssertionError(f"{label} {route}: rel {rel:.3e}")
+                errs[route] = (rel, float((got - ref).abs().max()))
+            # random data and ghost rows (nonzero everywhere)
+            rp = torch.randn(shards[1].shape, dtype=dtype, device=dev)
+            rw = torch.randn(windows[1].shape, dtype=dtype, device=dev)
+            rref = pd.spmv_planes_plain(noffs, rp, rw, n_in=n_in, nb=Lb,
+                                        halo=g)
+            for route in routes:
+                ry = pd.spmv_planes_cuda(noffs, rp, rw, n_in=n_in, nb=Lb,
+                                         route=route, halo=g)
+                rel = float(torch.linalg.norm(ry - rref)
+                            / torch.linalg.norm(rref))
+                if rel > bar:
+                    raise AssertionError(f"{label} random {route}: {rel}")
+            p1, w1, n1 = shards[1], windows[1], live[1]
+            csr = shard_plane_csr(noffs, p1, n_in, g)
+            lib_rel = float(torch.linalg.norm(csr @ w1 - pd.spmv_planes_plain(
+                noffs, p1, w1, n_in=n_in, nb=n1, halo=g))
+                / torch.linalg.norm(csr @ w1))
+            if lib_rel > bar:
+                raise AssertionError(f"cuSPARSE on the shard: {lib_rel}")
+            t = time_all(
+                lambda: pd.spmv_planes_cuda(noffs, p1, w1, n_in=n_in, nb=n1,
+                                            halo=g),
+                lambda: pd.spmv_planes_plain(noffs, p1, w1, n_in=n_in, nb=n1,
+                                             halo=g),
+                lambda: csr @ w1, flush)
+            whole_ms = (event_ms(lambda: pd.spmv_planes_cuda(
+                noffs, planes, x.reshape(-1), n_in=n_in, nb=nb), 25,
+                flush=flush), event_ms(lambda: pd.spmv_planes_cuda(
+                    noffs, planes, x.reshape(-1), n_in=n_in, nb=nb), 25))
+            n_out = p1.shape[0]
+            t["bound"], t["bound_by"] = bound_ms(
+                itemsize * (p1.numel() + w1.numel() + n_out * Lb),
+                2 * p1.numel(), dtype)
+            plan = pd.tiled_plan(noffs, p1, w1, n_in, halo=g)
+            plan_txt = "no tiled plan" if plan is None else (
+                f"tile {plan.tn}, {plan.n_tiles} tiles, {plan.stages} "
+                f"stages, {plan.smem_bytes} B shared")
+            print(f"{label}: Lb={Lb} nodes per shard, stored ghost width "
+                  f"g={g} (node halo {max(map(abs, noffs))}), route {chosen} "
+                  f"({plan_txt}); shard rows equal the whole-vector launch "
+                  f"bit for bit on {'/'.join(routes)}; rel to plain "
+                  + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
+                  + f" | shard 1: kernel {t['k_flush']:.4f} ms flushed, "
+                  f"{t['k']:.4f} ms L2-warm | plain {t['p_flush']:.4f} / "
+                  f"{t['p']:.4f} ms | cuSPARSE on the shard "
+                  f"{t['lib_flush']:.4f} / {t['lib']:.4f} ms | bound "
+                  f"{t['bound']:.4f} ms ({t['bound_by']}) | whole matrix, "
+                  f"one launch: {whole_ms[0]:.4f} / {whole_ms[1]:.4f} ms",
+                  flush=True)
+            summary[(P, form, dtype)] = (errs[chosen][1], t)
+    return summary
+
+
+def halo_k2_phase(dev, mesh, pat, data64, flush) -> dict:
+    """(h), K2: matrix 6's A (81 diagonals) and S (123) in f32 and f64,
+    D^-1 (7), and A in bf16 with f32 x, cut into 4 shards (A and D^-1 by
+    the 'tl' rule, S by the 'bj' rule); checked and timed as K1."""
+    nb, n = mesh.nv, 4 * mesh.nv
+    inv = block4_inverse(diag_blocks_from_dia(pat.offsets, data64, nb),
+                         pivot_eps=1e-300, shift=1e-8)
+    s_off, s_data = scale_rows_dia(pat, data64, inv)
+    dinv = block_diag_to_dia(inv)
+    P = SHARDS
+    rng = np.random.default_rng(2092)
+    forms = (("A", pat.offsets, data64, 4 * 48, torch.float32, None),
+             ("A", pat.offsets, data64, 4 * 48, torch.float64, None),
+             ("S", s_off, s_data, 1, torch.float32, None),
+             ("S", s_off, s_data, 1, torch.float64, None),
+             ("Dinv", dinv.offsets, dinv.data, 4 * 48, torch.float32, None),
+             ("A", pat.offsets, data64, 4 * 48, torch.float32,
+              torch.bfloat16))
+    summary = {}
+    for form, offsets, d64, mult, x_dtype, store in forms:
+        data = d64.to(store or x_dtype).contiguous()
+        bar = 1e-6 if store is not None else BARS[x_dtype]
+        L = tpart.scalar_shard_rows(n, offsets, P, mult)
+        h = tpart.halo_of(offsets)
+        x = torch.as_tensor(rng.standard_normal(n), dtype=x_dtype,
+                            device=dev)
+        shards = tpart.split_rows(data, L, [dev] * P).parts
+        windows = tpart.exchange(tpart.split_rows(x, L, [dev] * P).parts, h)
+        got = torch.cat([dia_ops.spmv_dia_cuda(offsets, d, w, halo=h)
+                         for d, w in zip(shards, windows)])[:n]
+        label = (f"K2 {form} {str(data.dtype)[6:]}"
+                 + (f" x {str(x_dtype)[6:]}" if store else "")
+                 + f" (K={len(offsets)}) with ghost rows, {P} shards")
+        if not torch.equal(got, dia_ops.spmv_dia_cuda(offsets, data, x)):
+            raise AssertionError(f"{label}: shard rows differ from the "
+                                 "whole-vector launch")
+        ref = torch.cat([dia_ops.spmv_dia_plain(offsets, d, w, halo=h)
+                         for d, w in zip(shards, windows)])[:n]
+        rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+        if rel > bar:
+            raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar})")
+        rd = torch.randn(shards[1].shape, device=dev).to(data.dtype)
+        rw = torch.randn(windows[1].shape, dtype=x_dtype, device=dev)
+        rref = dia_ops.spmv_dia_plain(offsets, rd, rw, halo=h)
+        rrel = float(torch.linalg.norm(
+            dia_ops.spmv_dia_cuda(offsets, rd, rw, halo=h) - rref)
+            / torch.linalg.norm(rref))
+        if rrel > bar:
+            raise AssertionError(f"{label} random ghosts: rel {rrel:.3e}")
+        d1, w1 = shards[1], windows[1]
+        csr = None if store else shard_csr(offsets, d1, h)
+        t = time_all(lambda: dia_ops.spmv_dia_cuda(offsets, d1, w1, halo=h),
+                     lambda: dia_ops.spmv_dia_plain(offsets, d1, w1, halo=h),
+                     None if csr is None else (lambda: csr @ w1), flush)
+        whole_ms = (event_ms(lambda: dia_ops.spmv_dia_cuda(offsets, data, x),
+                             25, flush=flush),
+                    event_ms(lambda: dia_ops.spmv_dia_cuda(offsets, data, x),
+                             25))
+        t["bound"], t["bound_by"] = bound_ms(
+            d1.numel() * d1.element_size()
+            + (w1.numel() + L) * w1.element_size(), 2 * d1.numel(), x_dtype)
+        lib = "none (bf16 data)" if csr is None else \
+            f"{t['lib_flush']:.4f} / {t['lib']:.4f} ms"
+        print(f"{label}: L={L} rows per shard, ghost width {h}; shard rows "
+              f"equal the whole-vector launch bit for bit; rel {rel:.3e}, "
+              f"random ghosts {rrel:.3e} | shard 1: kernel "
+              f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm | "
+              f"plain {t['p_flush']:.4f} / {t['p']:.4f} ms | cuSPARSE on the "
+              f"shard {lib} | bound {t['bound']:.4f} ms ({t['bound_by']}) | "
+              f"whole matrix, one launch: {whole_ms[0]:.4f} / "
+              f"{whole_ms[1]:.4f} ms", flush=True)
+        summary[(form, str(data.dtype), x_dtype)] = (
+            float((got - ref).abs().max()), t)
+    return summary
+
+
+def halo_phase(dev, mesh, pat, data64, flush) -> tuple:
+    phase("(h) K1 and K2 with ghost rows: matrix 6 in 4 and 8 shards, each "
+          "shard against the whole-vector launch bit for bit")
+    return (halo_k1_phase(dev, mesh, pat, data64, flush),
+            halo_k2_phase(dev, mesh, pat, data64, flush))
+
+
+def dryrun_phase(dev) -> dict:
+    phase(f"(i) dryrun_multichip({SHARDS}, {dev}) and dryrun_wide({SHARDS}, "
+          f"{dev})")
+    reset_counters()
+    multi = dryrun.dryrun_multichip(SHARDS, dev)
+    counts = counters()
+    if counts["K1 halo"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"dryrun_multichip counts {counts}")
+    wide = dryrun.dryrun_wide(SHARDS, dev)
+    return {"multichip": multi, "wide": wide, "K1 halo": counts["K1 halo"]}
+
+
+def dist_run(label: str, mesh, cfg, devices, n_steps: int,
+             stokes_must_converge=True, max_newton=3) -> tuple:
+    """The distributed solver through its API (Stokes + n_steps), counters
+    reset just before and read just after, each step printed; then one
+    more step counted alone.  Returns (solver, u, counts, per-step)."""
+    phase(label)
+    reset_counters()
+    t0 = time.perf_counter()
+    solver, _ = DistributedNavierStokesSolver.from_mesh(mesh, cfg,
+                                                        devices=devices)
+    print(f"{solver.placement()}; shard kernel {solver.shard_kernel_name()}"
+          f"; prep {solver.prep_kind}, preconditioner "
+          f"{solver.cfg.krylov.preconditioner}, coarse_cheby "
+          f"{solver.cfg.krylov.coarse_cheby}, coarse_agg "
+          f"{solver.cfg.krylov.coarse_agg}")
+    u = solver.run(n_steps, monitor=False)
+    _sync(devices[0])
+    seconds = time.perf_counter() - t0
+    counts = counters()
+    st = solver.stokes_result
+    print(f"Stokes: gmres={st.iters} converged={st.converged}")
+    step_lines(label.split(":")[0], solver.history)
+    print(f"setup + Stokes + {n_steps} steps {seconds:.3f} s; kernel counts "
+          f"{counts}")
+    if stokes_must_converge and not st.converged:
+        raise AssertionError("Stokes solve did not converge")
+    for step, s, _ in solver.history:
+        if not s.converged or (max_newton and s.iters > max_newton):
+            raise AssertionError(f"step {step}: newton={s.iters} "
+                                 f"converged={s.converged}")
+    if not no_plain_calls(counts) or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f"plain calls or a non-finite state: {counts}")
+    reset_counters()
+    _, _, one = solver.step(u, u, torch.zeros_like(u))
+    per_step = counters()
+    print(f"one more step (newton={one.iters} gmres={one.lin_iters}): kernel "
+          f"counts {per_step}")
+    return solver, u, counts, per_step
+
+
+def dist_main_phase(dev, matrix_id: int = 6) -> dict:
+    """(j) matrix 6 at the CLI's float32 defaults over 4 shards of the
+    card: 'auto' resolves to plain two_level 'tlp' (with a warning); every
+    GMRES matvec is K1's ghost-row form; against the single-device solver
+    at the same resolved config."""
+    mesh = scaling_series_mesh(matrix_id)
+    cfg = f32_flagship_cfg()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        solver, u, counts, per_step = dist_run(
+            f"(j) the main distributed path: matrix {matrix_id}, float32 "
+            "defaults, "
+            f"{SHARDS} shards on {dev}, Stokes + 3 steps", mesh, cfg,
+            [dev] * SHARDS, 3)
+    print("warnings: " + "; ".join(str(w.message) for w in rec
+                                   if "distribution" in str(w.message)))
+    kr = solver.cfg.krylov
+    if solver.prep_kind != "tlp" or kr.coarse_cheby or \
+            solver.shard_kernel_name() != "plane_spmv_halo":
+        raise AssertionError(f"{solver.prep_kind}, {kr}")
+    if counts["K1 halo"] <= 0 or per_step["K1 halo"] <= 0 or counts["K2"] \
+            or counts["K3"]:
+        raise AssertionError(f"kernel counts {counts}, per step {per_step}")
+    check_state(solver.disc.mesh, u)
+    # the single-device solver at the same resolved config
+    single_cfg = f32_flagship_cfg(krylov=dict(
+        preconditioner="two_level", coarse_cheby=0, coarse_agg=kr.coarse_agg,
+        coarse_dense_max=kr.coarse_dense_max))
+    reset_counters()
+    single = NavierStokesSolver(solver.disc.mesh, single_cfg, device=dev)
+    us = single.run(3, monitor=False)
+    _sync(dev)
+    step_lines("single device", single.history)
+    newton_d = [s.iters for _, s, _ in solver.history]
+    newton_s = [s.iters for _, s, _ in single.history]
+    lin_d = statistics.mean(s.lin_iters for _, s, _ in solver.history)
+    lin_s = statistics.mean(s.lin_iters for _, s, _ in single.history)
+    gap = rel_gap(u, us)
+    ms_d = 1e3 * statistics.mean(sec for _, _, sec in solver.history)
+    ms_s = 1e3 * statistics.mean(sec for _, _, sec in single.history)
+    print(f"distributed against one device at the same config: Newton "
+          f"{newton_d} / {newton_s}, mean GMRES per step {lin_d:.1f} / "
+          f"{lin_s:.1f}, state gap after 3 steps rel {gap:.3e}; step "
+          f"{ms_d:.2f} ms distributed ({SHARDS} shards, one card), "
+          f"{ms_s:.2f} ms on one device", flush=True)
+    if newton_d != newton_s or not 0.8 * lin_s <= lin_d <= 1.25 * lin_s \
+            or gap > 1e-4:
+        raise AssertionError("distributed and single-device runs disagree")
+    return {"K1 halo": counts["K1 halo"], "K1 halo per step":
+            per_step["K1 halo"], "step ms": ms_d, "single step ms": ms_s,
+            "GMRES": lin_d, "single GMRES": lin_s}
+
+
+def dist_scalar_phase(dev, matrix_id: int = 6) -> dict:
+    """(k) the scalar paths over 4 shards at matrix 6: the float64 CLI
+    default 'bj' and 'tl' float32 (spmv='pallas'), Stokes + 2 steps each,
+    K2's ghost-row form counted; then CA-GMRES ('bj', neumann_order=0)
+    through the one-exchange power sweep on a channel, on the card and on
+    the CPU from one state."""
+    mesh = scaling_series_mesh(matrix_id)
+    bj_cfg = NSConfig(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float64",
+                      krylov=SolverConfig(),
+                      stokes_krylov=SolverConfig(rtol=1e-12, atol=1e-12,
+                                                 maxiter=2000))
+    _, u, bj_counts, _ = dist_run(
+        f"(k) 'bj', the float64 CLI default, matrix {matrix_id}, {SHARDS} "
+        "shards, "
+        "Stokes + 2 steps", mesh, bj_cfg, [dev] * SHARDS, 2,
+        stokes_must_converge=False, max_newton=None)
+    check_state(mesh, u)
+    if bj_counts["K2 halo"] <= 0 or bj_counts["K1"]:
+        raise AssertionError(f"'bj' counts {bj_counts}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        solver, u, tl_counts, _ = dist_run(
+            f"(k) 'tl' float32 (spmv='pallas'), matrix {matrix_id}, {SHARDS} "
+            "shards, Stokes + 2 steps", mesh,
+            f32_flagship_cfg(krylov=dict(spmv="pallas")), [dev] * SHARDS, 2)
+    check_state(mesh, u)
+    if solver.prep_kind != "tl" or tl_counts["K2 halo"] <= 0 \
+            or tl_counts["K1"]:
+        raise AssertionError(f"'tl' counts {tl_counts}")
+    # one device at the same resolved config (plain two_level, 'tl')
+    kr = solver.cfg.krylov
+    single = NavierStokesSolver(mesh, f32_flagship_cfg(krylov=dict(
+        spmv="pallas", preconditioner="two_level", coarse_cheby=0,
+        coarse_agg=kr.coarse_agg, coarse_dense_max=kr.coarse_dense_max)),
+        device=dev)
+    us = single.run(2, monitor=False)
+    _sync(dev)
+    step_lines("'tl' on one device, same config", single.history)
+    lin_d = statistics.mean(st.lin_iters for _, st, _ in solver.history)
+    lin_s = statistics.mean(st.lin_iters for _, st, _ in single.history)
+    print(f"'tl' distributed against one device: mean GMRES per step "
+          f"{lin_d:.1f} / {lin_s:.1f}, state gap rel {rel_gap(u, us):.3e}",
+          flush=True)
+    if [st.iters for _, st, _ in solver.history] != \
+            [st.iters for _, st, _ in single.history] \
+            or not 0.8 * lin_s <= lin_d <= 1.25 * lin_s:
+        raise AssertionError("'tl' distributed and single-device disagree")
+
+    phase(f"(k) CA-GMRES ('bj', neumann_order=0, restart 8) on channel(64, "
+          f"2, 2), {SHARDS} shards: the one-exchange power basis, card "
+          "against CPU")
+    small = channel_mesh(64, 2, 2, length=10.0)
+    kr = SolverConfig(method="ca_gmres", restart=8, neumann_order=0,
+                      rtol=1e-8, atol=1e-14, maxiter=6000)
+    ca_cfg = NSConfig(dt=0.01, reynolds=100.0, delta=0.1, dtype="float64",
+                      krylov=kr, stokes_krylov=kr)
+    # the shared state: a two-level GMRES Stokes solve on the card; one CA
+    # solve of the first Newton system from it (a Newton step's later
+    # systems depend on the first solve's own error, which the monomial
+    # basis's conditioning makes differ beyond rounding)
+    gm = SolverConfig(rtol=1e-12, atol=1e-13, maxiter=4000,
+                      preconditioner="two_level", coarse_agg=4)
+    u0 = DistributedNavierStokesSolver(
+        small, dataclasses.replace(ca_cfg, krylov=gm, stokes_krylov=gm),
+        devices=[dev] * SHARDS).stokes_init().cpu()
+    res = {}
+    for d in (dev, CPU):
+        s = DistributedNavierStokesSolver(small, ca_cfg,
+                                          devices=[d] * SHARDS)
+        s._ensure_prepared()
+        prep = s._exact_prep
+        if 8 * tpart.halo_of(prep.offsets) > prep.L:
+            raise AssertionError("the power basis does not fit a shard")
+        x0 = u0.to(d)
+        F = s._residual_fn(x0)(x0)
+        F = torch.where(s.disc.bc.is_bc, torch.zeros_like(F), F)
+        reset_counters()
+        t0 = time.perf_counter()
+        sol = s._solve_prepared(prep, -F, kr)
+        _sync(d)
+        res[d.type] = (sol, counters(), time.perf_counter() - t0)
+    (rg, cg_, tg), (rc, _, tc) = res["cuda"], res["cpu"]
+    gap = rel_gap(rg.x.cpu(), rc.x)
+    print(f"one CA-GMRES solve of the first Newton system: card gmres="
+          f"{rg.iters} converged={rg.converged} {tg:.3f} s, counts {cg_}; "
+          f"CPU gmres={rc.iters} converged={rc.converged} {tc:.3f} s; "
+          f"solution gap rel {gap:.3e}", flush=True)
+    # rel 1e-6: the monomial basis amplifies rounding (a 1e-15 change of
+    # the right-hand side moves this solution by rel 1.4e-10 on the CPU)
+    if not (rg.converged and rc.converged
+            and abs(rg.iters - rc.iters) <= 1 and gap < 1e-6
+            and cg_["K2 halo"] > 0 and no_plain_calls(cg_)):
+        raise AssertionError("CA-GMRES on the card and on the CPU disagree")
+    return {"bj K2 halo": bj_counts["K2 halo"],
+            "tl K2 halo": tl_counts["K2 halo"],
+            "K2 halo": bj_counts["K2 halo"] + tl_counts["K2 halo"],
+            "CA K2 halo": cg_["K2 halo"]}
+
+
 def _sync(dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
@@ -2174,6 +2652,7 @@ def main() -> int:
     k1_schur = k1_schur_phase(dev, flush)
     k3 = k3_phase(dev, flush)
     k4 = k4_phase(dev, pat, data64, flush)
+    halo_k1, halo_k2 = halo_phase(dev, mesh, pat, data64, flush)
     del flush, data64
     k1_launches, plane_lin = plane_path_phase()
     k3_launches = plane_cgs2_phase(plane_lin)
@@ -2203,6 +2682,10 @@ def main() -> int:
     }
     print("launches on the solver-option paths: " + json.dumps(
         options, default=str))
+    distributed = {"(i) dryruns": dryrun_phase(dev),
+                   "(j) main path": dist_main_phase(dev),
+                   "(k) scalar paths": dist_scalar_phase(dev)}
+    print("the distributed paths: " + json.dumps(distributed, default=str))
 
     print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
           f"default {f64_launches}, bf16 form on 'tl' {bf16_launches}; K3 "
@@ -2226,6 +2709,18 @@ def main() -> int:
         kernel_entry("cgs2_project", k3_launches,
                      *k3[(torch.float32, 117_760, 15, False)]),
         kernel_entry("spmpv_dia", k4_launches, *k4[(torch.float32, 2)]),
+        kernel_entry("plane_spmv_halo",
+                     distributed["(j) main path"]["K1 halo"],
+                     *halo_k1[(SHARDS, "4x4", torch.float32)],
+                     form=f"4x4 float32 with ghost rows, one of {SHARDS} "
+                          "shards of matrix 6; launches: the (j) "
+                          "distributed 'tlp' run"),
+        kernel_entry("dia_spmv_halo",
+                     distributed["(k) scalar paths"]["K2 halo"],
+                     *halo_k2[("A", "torch.float32", torch.float32)],
+                     form=f"A float32 with ghost rows, one of {SHARDS} "
+                          "shards of matrix 6; launches: the (k) 'bj' and "
+                          "'tl' distributed runs"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -15,7 +15,8 @@ preconditioner ('sch'); block-Jacobi with its Neumann boost ('bj');
 or the fused projection K3), CG and CA-GMRES with the monomial or the
 Newton basis; and deflation.  `check_supported` raises
 `NotImplementedError` only for `ell_slots`, the block-ELL layout of ROADMAP
-slice 16 (distribution, slice 15, is a CLI flag: `run.py`).  It raises the
+slice 16.  Distribution is `parallel.DistributedNavierStokesSolver` (the
+CLI's `--devices`), which narrows the options further.  It raises the
 JAX package's own `ValueError` for what the JAX package refuses, and a
 `ValueError` where the JAX package would silently ignore or replace an
 option: `preconditioner='ilu0'|'none'` (block-Jacobi there), `matvec_dtype`
@@ -28,6 +29,7 @@ config, `resolve_supported` raises one `ValueError` that says so.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -411,9 +413,33 @@ def _check_auto_tier(user: SolverConfig, resolved: SolverConfig,
             "this size), or a larger coarse_agg or coarse_dense_max")
 
 
-def resolve_supported(cfg: NSConfig, nv: int) -> NSConfig:
-    """`resolve_coarse_defaults` for one device, then `check_supported`."""
-    resolved = resolve_coarse_defaults(cfg, nv)
+def _warn_auto_degraded(cfg: NSConfig, resolved: NSConfig, nv: int) -> None:
+    """Under distribution 'auto' resolves to plain two_level: say so, once,
+    where one device would have taken another tier (the JAX package
+    degrades silently)."""
+    single = resolve_coarse_defaults(cfg, nv)
+    for user, dist, one in ((cfg.krylov, resolved.krylov, single.krylov),
+                            (cfg.stokes_krylov, resolved.stokes_krylov,
+                             single.stokes_krylov)):
+        if user.preconditioner != "auto" or dist == one:
+            continue
+        warnings.warn(
+            f"preconditioner='auto' resolves to plain two_level under "
+            f"distribution (coarse_cheby={dist.coarse_cheby}); one device "
+            f"would take preconditioner={one.preconditioner!r} with "
+            f"coarse_cheby={one.coarse_cheby}, schur_v_cheby="
+            f"{one.schur_v_cheby} at {4 * nv} rows", stacklevel=3)
+        return
+
+
+def resolve_supported(cfg: NSConfig, nv: int,
+                      single_chip: bool = True) -> NSConfig:
+    """`resolve_coarse_defaults` (for one device, or with `single_chip`
+    False for the distributed solver, which warns where 'auto' degrades),
+    then `check_supported`."""
+    resolved = resolve_coarse_defaults(cfg, nv, single_chip=single_chip)
+    if not single_chip:
+        _warn_auto_degraded(cfg, resolved, nv)
     _check_auto_tier(cfg.krylov, resolved.krylov, nv)
     check_supported(resolved, nv)
     return resolved

@@ -157,16 +157,20 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
 }
 
 // The producer warp: fill the x window of a tile.  xw holds `planes` rows
-// of `w` values; xw[b][c] is x[b * n + base + c].  The part inside [0, n)
-// comes by one bulk copy per plane, the rest is written as exact zeros,
-// which the arrival on `bar` publishes.  `base`, `w` and `n` are multiples
-// of 16 bytes, `planes` at most 32.
+// of `w` values; xw[b][c] is x[b * stride + base + c].  The part inside
+// the source's valid range [lo, hi) comes by one bulk copy per plane, the
+// rest is written as exact zeros, which the arrival on `bar` publishes.
+// A plane of n rows has stride n and range [0, n); with g ghost rows on
+// either side (x pointing at row 0 of the first plane), stride n + 2g and
+// range [-g, n + g).  `base`, `w`, `stride`, `lo` and `hi` are multiples of
+// 16 bytes, `planes` at most 32.
 template <typename T>
 __device__ __forceinline__ void load_window(T* xw, const T* x, int planes,
-                                            int n, int base, int w,
-                                            uint64_t* bar) {
+                                            int stride, int lo, int hi,
+                                            int base, int w, uint64_t* bar) {
   const int lane = threadIdx.x & 31;
-  const int g0 = min(max(0, base), base + w), g1 = max(min(n, base + w), g0);
+  const int g0 = min(max(lo, base), base + w);
+  const int g1 = max(min(hi, base + w), g0);
   for (int b = 0; b < planes; ++b) {
     for (int c = lane; c < g0 - base; c += 32) xw[b * w + c] = T(0);
     for (int c = g1 - base + lane; c < w; c += 32) xw[b * w + c] = T(0);
@@ -177,8 +181,8 @@ __device__ __forceinline__ void load_window(T* xw, const T* x, int planes,
   if (lane == 0) expect_bytes(bar, planes * bytes);
   __syncwarp();
   if (bytes && lane < planes) {
-    bulk_load(xw + lane * w + (g0 - base), x + (size_t)lane * n + g0, bytes,
-              bar);
+    bulk_load(xw + lane * w + (g0 - base), x + (size_t)lane * stride + g0,
+              bytes, bar);
   }
 }
 

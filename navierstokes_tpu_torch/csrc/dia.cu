@@ -35,6 +35,16 @@
 // DIA storage does not promise zeros in data where i + off leaves the
 // matrix, so the mask is needed, and no padded copy of x is made.
 //
+// The ghost-row form (`ghost` = g > 0; the TPU kernel's x_prehalo=True, run
+// per shard by the distributed solver, parallel/partitioned.py): x holds
+// n + 2g values, x[g + j] for j in [-g, n + g), the g ghost rows on either
+// side filled by the halo exchange from the neighbouring shards (zeros
+// beyond the matrix).  With g >= max|off| every i + off lands inside that
+// window, so nothing is masked: y[i] = sum_k data[k, i] * x[g + i + off_k].
+// The terms are summed in the same order as in the masked form, so a
+// shard's rows equal the rows of one launch on the whole vector bit for
+// bit.  g = 0 is the masked form unchanged.
+//
 // Accumulation is in float for f32 data and in double for f64 data
 // (promote(dtype, f32), as in the TPU kernel).  The output dtype is x's,
 // which must equal data's.
@@ -81,10 +91,12 @@ struct Accum<double> {
   using type = double;
 };
 
-template <typename T>
+// kGhost: the ghost-row form, compiled apart so that the masked form's
+// code is the one it always was.
+template <typename T, bool kGhost>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                T* __restrict__ y, int n, Offsets offs) {
+                T* __restrict__ y, int n, int ghost, Offsets offs) {
   using A = typename Accum<T>::type;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -93,38 +105,52 @@ dia_spmv_kernel(const T* __restrict__ data, const T* __restrict__ x,
 #pragma unroll 8
   for (int k = 0; k < offs.n; ++k) {
     const int src = i + offs.d[k];
-    const A xv = (src >= 0 && src < n) ? A(__ldg(x + src)) : A(0);
+    const A xv = kGhost ? A(__ldg(x + ghost + src))
+                 : (src >= 0 && src < n) ? A(__ldg(x + src)) : A(0);
     acc += A(__ldg(col + (size_t)k * n)) * xv;
   }
   y[i] = T(acc);
 }
 
-template <typename T>
-int launch(const void* data, const void* x, void* y, int k, int n,
-           const int* offsets, void* stream) {
-  if (k < 1 || k > kMaxDiagonals || n < 1 || offsets == nullptr) {
-    return (int)cudaErrorInvalidValue;
+// The offsets a launch takes, or false: 1..kMaxDiagonals of them, and in
+// the ghost-row form each within the ghost width.
+bool pack(const int* offsets, int k, int n, int ghost, Offsets* offs) {
+  if (k < 1 || k > kMaxDiagonals || n < 1 || ghost < 0 ||
+      offsets == nullptr) {
+    return false;
   }
+  offs->n = k;
+  for (int t = 0; t < kMaxDiagonals; ++t) {
+    offs->d[t] = t < k ? offsets[t] : 0;
+    if (ghost > 0 && (offs->d[t] > ghost || offs->d[t] < -ghost)) return false;
+  }
+  return true;
+}
+
+template <typename T>
+int launch(const void* data, const void* x, void* y, int k, int n, int ghost,
+           const int* offsets, void* stream) {
   Offsets offs;
-  offs.n = k;
-  for (int t = 0; t < kMaxDiagonals; ++t) offs.d[t] = t < k ? offsets[t] : 0;
+  if (!pack(offsets, k, n, ghost, &offs)) return (int)cudaErrorInvalidValue;
 
   const dim3 grid((n + kThreads - 1) / kThreads);
   const dim3 block(kThreads);
-  dia_spmv_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel =
+      ghost > 0 ? dia_spmv_kernel<T, true> : dia_spmv_kernel<T, false>;
+  kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(data), static_cast<const T*>(x),
-      static_cast<T*>(y), n, offs);
+      static_cast<T*>(y), n, ghost, offs);
   return (int)cudaGetLastError();
 }
 
 // Two rows per thread: rows i = 2t and i + 1 (when < n), bf16 data, x and
 // y in T, the sum in T.  kPaired: n is even and data starts on 4 bytes, so
 // data[k, i] does too and the pair is one __nv_bfloat162 load.
-template <typename T, bool kPaired>
+template <typename T, bool kPaired, bool kGhost>
 __global__ void __launch_bounds__(kThreads)
 dia_spmv_bf16_kernel(const __nv_bfloat16* __restrict__ data,
                      const T* __restrict__ x, T* __restrict__ y, int n,
-                     Offsets offs) {
+                     int ghost, Offsets offs) {
   const int i = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= n) return;
   const bool second = i + 1 < n;
@@ -144,8 +170,14 @@ dia_spmv_bf16_kernel(const __nv_bfloat16* __restrict__ data,
       d1 = second ? __bfloat162float(__ldg(dk + 1)) : 0.0f;
     }
     const int src = i + offs.d[k];
-    const T x0 = (src >= 0 && src < n) ? __ldg(x + src) : T(0);
-    const T x1 = (src + 1 >= 0 && src + 1 < n) ? __ldg(x + src + 1) : T(0);
+    T x0, x1;
+    if (kGhost) {
+      x0 = __ldg(x + ghost + src);
+      x1 = __ldg(x + ghost + src + 1);
+    } else {
+      x0 = (src >= 0 && src < n) ? __ldg(x + src) : T(0);
+      x1 = (src + 1 >= 0 && src + 1 < n) ? __ldg(x + src + 1) : T(0);
+    }
     acc0 += T(d0) * x0;
     acc1 += T(d1) * x1;
   }
@@ -155,13 +187,9 @@ dia_spmv_bf16_kernel(const __nv_bfloat16* __restrict__ data,
 
 template <typename T>
 int launch_bf16(const void* data, const void* x, void* y, int k, int n,
-                const int* offsets, void* stream) {
-  if (k < 1 || k > kMaxDiagonals || n < 1 || offsets == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
+                int ghost, const int* offsets, void* stream) {
   Offsets offs;
-  offs.n = k;
-  for (int t = 0; t < kMaxDiagonals; ++t) offs.d[t] = t < k ? offsets[t] : 0;
+  if (!pack(offsets, k, n, ghost, &offs)) return (int)cudaErrorInvalidValue;
 
   const int pairs = (n + 1) / 2;
   const dim3 grid((pairs + kThreads - 1) / kThreads);
@@ -170,34 +198,39 @@ int launch_bf16(const void* data, const void* x, void* y, int k, int n,
   const auto* xs = static_cast<const T*>(x);
   auto* ys = static_cast<T*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n % 2 == 0 && reinterpret_cast<uintptr_t>(data) % 4 == 0) {
-    dia_spmv_bf16_kernel<T, true><<<grid, block, 0, s>>>(d, xs, ys, n, offs);
-  } else {
-    dia_spmv_bf16_kernel<T, false><<<grid, block, 0, s>>>(d, xs, ys, n, offs);
-  }
+  const bool paired = n % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(data) % 4 == 0;
+  auto kernel = paired ? (ghost > 0 ? dia_spmv_bf16_kernel<T, true, true>
+                                    : dia_spmv_bf16_kernel<T, true, false>)
+                       : (ghost > 0 ? dia_spmv_bf16_kernel<T, false, true>
+                                    : dia_spmv_bf16_kernel<T, false, false>);
+  kernel<<<grid, block, 0, s>>>(d, xs, ys, n, ghost, offs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// x holds n + 2 * ghost values (ghost = 0: n, the masked form).
 extern "C" int dia_spmv_f32(const void* data, const void* x, void* y, int k,
-                            int n, const int* offsets, void* stream) {
-  return launch<float>(data, x, y, k, n, offsets, stream);
+                            int n, int ghost, const int* offsets,
+                            void* stream) {
+  return launch<float>(data, x, y, k, n, ghost, offsets, stream);
 }
 
 extern "C" int dia_spmv_f64(const void* data, const void* x, void* y, int k,
-                            int n, const int* offsets, void* stream) {
-  return launch<double>(data, x, y, k, n, offsets, stream);
+                            int n, int ghost, const int* offsets,
+                            void* stream) {
+  return launch<double>(data, x, y, k, n, ghost, offsets, stream);
 }
 
 extern "C" int dia_spmv_bf16_f32(const void* data, const void* x, void* y,
-                                 int k, int n, const int* offsets,
+                                 int k, int n, int ghost, const int* offsets,
                                  void* stream) {
-  return launch_bf16<float>(data, x, y, k, n, offsets, stream);
+  return launch_bf16<float>(data, x, y, k, n, ghost, offsets, stream);
 }
 
 extern "C" int dia_spmv_bf16_f64(const void* data, const void* x, void* y,
-                                 int k, int n, const int* offsets,
+                                 int k, int n, int ghost, const int* offsets,
                                  void* stream) {
-  return launch_bf16<double>(data, x, y, k, n, offsets, stream);
+  return launch_bf16<double>(data, x, y, k, n, ghost, offsets, stream);
 }

@@ -38,6 +38,18 @@
 //     shapes the tiled route does not take (a window that does not fit
 //     shared memory, rows that do not start on 16 bytes).
 //
+// The ghost-row form (`ghost` = g > 0; the TPU kernel's x_prehalo=True, run
+// per shard by the distributed solver, parallel/partitioned.py): each plane
+// of x holds nbp + 2g values, x_b[g + j] for j in [-g, nbp + g), the g
+// ghost rows on either side filled by the halo exchange from the
+// neighbouring shards (zeros beyond the matrix).  With g >= max|D| every
+// i + D lands in that range: the rows route drops its mask, and the tiled
+// route's window takes [-g, nbp + g) as the source's valid range and
+// nbp + 2g as its plane stride (g a multiple of 16 bytes, so that the
+// window's bulk copies stay aligned).  The terms are summed in the same
+// order as without ghosts, so a shard's rows equal the rows of one launch
+// on the whole vector bit for bit.  g = 0 is the masked form unchanged.
+//
 // Rows nb <= i < nbp are padding and are written as exact zeros by both.
 // Accumulation is in float for f32 data and in double for f64 data
 // (promote(dtype, f32), as in the TPU kernel).
@@ -67,11 +79,13 @@ struct NodeOffsets {
 
 // ---------------------------------------------------------------- rows route
 
-template <typename T, int NOUT>
+// kGhost: the ghost-row form, compiled apart so that the masked form's code
+// is the one it always was.
+template <typename T, int NOUT, bool kGhost>
 __global__ void __launch_bounds__(kThreads)
 plane_spmv_rows_kernel(const T* __restrict__ data, const T* __restrict__ x,
                        T* __restrict__ y, int n_in, int nb, int nbp,
-                       NodeOffsets offs) {
+                       int ghost, NodeOffsets offs) {
   using A = typename Accum<T>::type;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nbp) return;
@@ -81,6 +95,8 @@ plane_spmv_rows_kernel(const T* __restrict__ data, const T* __restrict__ x,
     return;
   }
   const size_t plane_stride = (size_t)n_in * offs.n * nbp;  // between a's
+  const size_t x_stride = kGhost ? (size_t)nbp + 2 * ghost : (size_t)nbp;
+  const int x0 = kGhost ? ghost : 0;  // x_b[0] of plane b at x[b*x_stride+x0]
   A acc[NOUT];
 #pragma unroll
   for (int a = 0; a < NOUT; ++a) acc[a] = A(0);
@@ -88,9 +104,9 @@ plane_spmv_rows_kernel(const T* __restrict__ data, const T* __restrict__ x,
   const T* col = data + i;  // data[0, j, i], advanced by nbp per term j
   for (int t = 0; t < offs.n; ++t) {
     const int src = i + offs.d[t];
-    const bool inside = src >= 0 && src < nbp;
+    const bool inside = kGhost || (src >= 0 && src < nbp);
     for (int b = 0; b < n_in; ++b, col += nbp) {
-      const A xv = inside ? A(x[(size_t)b * nbp + src]) : A(0);
+      const A xv = inside ? A(x[(size_t)b * x_stride + x0 + src]) : A(0);
 #pragma unroll
       for (int a = 0; a < NOUT; ++a) {
         acc[a] += A(col[a * plane_stride]) * xv;
@@ -101,11 +117,17 @@ plane_spmv_rows_kernel(const T* __restrict__ data, const T* __restrict__ x,
   for (int a = 0; a < NOUT; ++a) y[(size_t)a * nbp + i] = T(acc[a]);
 }
 
-bool bad_shape(int n_out, int n_in, int n_d, int nb, int nbp,
+bool bad_shape(int n_out, int n_in, int n_d, int nb, int nbp, int ghost,
                const int* offsets) {
-  return n_out < 1 || n_out > kMaxPlanes || n_in < 1 || n_in > kMaxPlanes ||
-         n_d < 1 || n_d > kMaxOffsets || nb < 0 || nb > nbp || nbp < 1 ||
-         offsets == nullptr;
+  if (n_out < 1 || n_out > kMaxPlanes || n_in < 1 || n_in > kMaxPlanes ||
+      n_d < 1 || n_d > kMaxOffsets || nb < 0 || nb > nbp || nbp < 1 ||
+      ghost < 0 || offsets == nullptr) {
+    return true;
+  }
+  for (int t = 0; t < n_d && ghost > 0; ++t) {
+    if (offsets[t] > ghost || offsets[t] < -ghost) return true;
+  }
+  return false;
 }
 
 NodeOffsets pack(const int* offsets, int n_d) {
@@ -115,10 +137,35 @@ NodeOffsets pack(const int* offsets, int n_d) {
   return offs;
 }
 
+template <typename T, bool kGhost>
+void rows_nout(int n_out, dim3 grid, dim3 block, cudaStream_t s, const T* d,
+               const T* xv, T* yv, int n_in, int nb, int nbp, int ghost,
+               const NodeOffsets& offs) {
+  switch (n_out) {
+    case 1:
+      plane_spmv_rows_kernel<T, 1, kGhost><<<grid, block, 0, s>>>(
+          d, xv, yv, n_in, nb, nbp, ghost, offs);
+      break;
+    case 2:
+      plane_spmv_rows_kernel<T, 2, kGhost><<<grid, block, 0, s>>>(
+          d, xv, yv, n_in, nb, nbp, ghost, offs);
+      break;
+    case 3:
+      plane_spmv_rows_kernel<T, 3, kGhost><<<grid, block, 0, s>>>(
+          d, xv, yv, n_in, nb, nbp, ghost, offs);
+      break;
+    default:
+      plane_spmv_rows_kernel<T, 4, kGhost><<<grid, block, 0, s>>>(
+          d, xv, yv, n_in, nb, nbp, ghost, offs);
+      break;
+  }
+}
+
 template <typename T>
 int launch_rows(const void* data, const void* x, void* y, int n_out, int n_in,
-                int n_d, int nb, int nbp, const int* offsets, void* stream) {
-  if (bad_shape(n_out, n_in, n_d, nb, nbp, offsets)) {
+                int n_d, int nb, int nbp, int ghost, const int* offsets,
+                void* stream) {
+  if (bad_shape(n_out, n_in, n_d, nb, nbp, ghost, offsets)) {
     return (int)cudaErrorInvalidValue;
   }
   const NodeOffsets offs = pack(offsets, n_d);
@@ -128,19 +175,12 @@ int launch_rows(const void* data, const void* x, void* y, int n_out, int n_in,
   const T* d = static_cast<const T*>(data);
   const T* xv = static_cast<const T*>(x);
   T* yv = static_cast<T*>(y);
-  switch (n_out) {
-    case 1:
-      plane_spmv_rows_kernel<T, 1><<<grid, block, 0, s>>>(d, xv, yv, n_in, nb, nbp, offs);
-      break;
-    case 2:
-      plane_spmv_rows_kernel<T, 2><<<grid, block, 0, s>>>(d, xv, yv, n_in, nb, nbp, offs);
-      break;
-    case 3:
-      plane_spmv_rows_kernel<T, 3><<<grid, block, 0, s>>>(d, xv, yv, n_in, nb, nbp, offs);
-      break;
-    default:
-      plane_spmv_rows_kernel<T, 4><<<grid, block, 0, s>>>(d, xv, yv, n_in, nb, nbp, offs);
-      break;
+  if (ghost > 0) {
+    rows_nout<T, true>(n_out, grid, block, s, d, xv, yv, n_in, nb, nbp, ghost,
+                       offs);
+  } else {
+    rows_nout<T, false>(n_out, grid, block, s, d, xv, yv, n_in, nb, nbp, 0,
+                        offs);
   }
   return (int)cudaGetLastError();
 }
@@ -154,8 +194,8 @@ int launch_rows(const void* data, const void* x, void* y, int n_out, int n_in,
 template <typename T, int NOUT, int NIN>
 __global__ void __launch_bounds__(kMaxTile + band_ring::kProducerThreads, 1)
 plane_spmv_tiled_kernel(const T* __restrict__ data, const T* __restrict__ x,
-                        T* __restrict__ y, int nb, int nbp, int tn, int stages,
-                        int dlo, int w, NodeOffsets offs) {
+                        T* __restrict__ y, int nb, int nbp, int ghost, int tn,
+                        int stages, int dlo, int w, NodeOffsets offs) {
   using A = typename Accum<T>::type;
   extern __shared__ __align__(128) unsigned char smem[];
   auto* bars = reinterpret_cast<band_ring::Barriers*>(smem);
@@ -182,7 +222,8 @@ plane_spmv_tiled_kernel(const T* __restrict__ data, const T* __restrict__ x,
       const uint32_t bytes = (uint32_t)(min(tn, nbp - i0) * sizeof(T));
       const band_ring::WindowUse win(m, my_tiles);
       band_ring::wait(bars->window_empty + win.buffer, win.parity ^ 1);
-      band_ring::load_window(xw + win.buffer * NIN * w, x, NIN, nbp, i0 + dlo,
+      band_ring::load_window(xw + win.buffer * NIN * w, x + ghost, NIN,
+                             nbp + 2 * ghost, -ghost, nbp + ghost, i0 + dlo,
                              w, bars->window_full + win.buffer);
       for (int d = 0; d < offs.n; ++d) {
         band_ring::wait(bars->empty + cur.slot, cur.parity);
@@ -236,7 +277,7 @@ plane_spmv_tiled_kernel(const T* __restrict__ data, const T* __restrict__ x,
 
 // What a tiled launch needs beside the tensors.
 struct TiledLaunch {
-  int nb, nbp, tn, stages, grid, dlo, w;
+  int nb, nbp, ghost, tn, stages, grid, dlo, w;
   size_t smem;
   NodeOffsets offs;
   cudaStream_t stream;
@@ -249,7 +290,7 @@ int launch_tiled_form(const T* data, const T* x, T* y, const TiledLaunch& l) {
   const cudaError_t rc = band_ring::allow_full_smem(kernel, allowed);
   if (rc != cudaSuccess) return (int)rc;
   kernel<<<l.grid, l.tn + band_ring::kProducerThreads, l.smem, l.stream>>>(
-      data, x, y, l.nb, l.nbp, l.tn, l.stages, l.dlo, l.w, l.offs);
+      data, x, y, l.nb, l.nbp, l.ghost, l.tn, l.stages, l.dlo, l.w, l.offs);
   return (int)cudaGetLastError();
 }
 
@@ -268,13 +309,14 @@ int launch_tiled_nout(int n_in, const T* data, const T* x, T* y,
 // tile_plan); what the plan must satisfy is checked again here.
 template <typename T>
 int launch_tiled(const void* data, const void* x, void* y, int n_out, int n_in,
-                 int n_d, int nb, int nbp, const int* offsets, int tn,
-                 int stages, int grid, void* stream) {
-  if (bad_shape(n_out, n_in, n_d, nb, nbp, offsets) || tn < 32 ||
+                 int n_d, int nb, int nbp, int ghost, const int* offsets,
+                 int tn, int stages, int grid, void* stream) {
+  if (bad_shape(n_out, n_in, n_d, nb, nbp, ghost, offsets) || tn < 32 ||
       tn > kMaxTile || tn % 32 != 0 || stages < 1 ||
       stages > band_ring::kMaxStages || grid < 1 ||
       grid > (nbp + tn - 1) / tn ||
       ((size_t)nbp * sizeof(T)) % 16 != 0 ||
+      ((size_t)ghost * sizeof(T)) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(data) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
@@ -294,9 +336,9 @@ int launch_tiled(const void* data, const void* x, void* y, int n_out, int n_in,
           (long long)sizeof(T);
   if (smem > band_ring::kSmemLimit) return (int)cudaErrorInvalidValue;
 
-  const TiledLaunch l{nb,     nbp,          tn,
-                      stages, grid,         dlo,
-                      (int)w, (size_t)smem, pack(offsets, n_d),
+  const TiledLaunch l{nb,     nbp,    ghost,        tn,
+                      stages, grid,   dlo,          (int)w,
+                      (size_t)smem,   pack(offsets, n_d),
                       static_cast<cudaStream_t>(stream)};
   const T* d = static_cast<const T*>(data);
   const T* xv = static_cast<const T*>(x);
@@ -311,32 +353,38 @@ int launch_tiled(const void* data, const void* x, void* y, int n_out, int n_in,
 
 }  // namespace
 
+// Each plane of x holds nbp + 2 * ghost values (ghost = 0: nbp, the masked
+// form); x points at the first plane's first value.
 extern "C" int plane_spmv_rows_f32(const void* data, const void* x, void* y,
                                    int n_out, int n_in, int n_d, int nb,
-                                   int nbp, const int* offsets, void* stream) {
-  return launch_rows<float>(data, x, y, n_out, n_in, n_d, nb, nbp, offsets,
-                            stream);
+                                   int nbp, int ghost, const int* offsets,
+                                   void* stream) {
+  return launch_rows<float>(data, x, y, n_out, n_in, n_d, nb, nbp, ghost,
+                            offsets, stream);
 }
 
 extern "C" int plane_spmv_rows_f64(const void* data, const void* x, void* y,
                                    int n_out, int n_in, int n_d, int nb,
-                                   int nbp, const int* offsets, void* stream) {
-  return launch_rows<double>(data, x, y, n_out, n_in, n_d, nb, nbp, offsets,
-                             stream);
+                                   int nbp, int ghost, const int* offsets,
+                                   void* stream) {
+  return launch_rows<double>(data, x, y, n_out, n_in, n_d, nb, nbp, ghost,
+                             offsets, stream);
 }
 
 extern "C" int plane_spmv_tiled_f32(const void* data, const void* x, void* y,
                                     int n_out, int n_in, int n_d, int nb,
-                                    int nbp, const int* offsets, int tn,
-                                    int stages, int grid, void* stream) {
-  return launch_tiled<float>(data, x, y, n_out, n_in, n_d, nb, nbp, offsets,
-                             tn, stages, grid, stream);
+                                    int nbp, int ghost, const int* offsets,
+                                    int tn, int stages, int grid,
+                                    void* stream) {
+  return launch_tiled<float>(data, x, y, n_out, n_in, n_d, nb, nbp, ghost,
+                             offsets, tn, stages, grid, stream);
 }
 
 extern "C" int plane_spmv_tiled_f64(const void* data, const void* x, void* y,
                                     int n_out, int n_in, int n_d, int nb,
-                                    int nbp, const int* offsets, int tn,
-                                    int stages, int grid, void* stream) {
-  return launch_tiled<double>(data, x, y, n_out, n_in, n_d, nb, nbp, offsets,
-                              tn, stages, grid, stream);
+                                    int nbp, int ghost, const int* offsets,
+                                    int tn, int stages, int grid,
+                                    void* stream) {
+  return launch_tiled<double>(data, x, y, n_out, n_in, n_d, nb, nbp, ghost,
+                              offsets, tn, stages, grid, stream);
 }

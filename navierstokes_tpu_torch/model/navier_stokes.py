@@ -267,19 +267,40 @@ def _plane_shape(prep) -> Optional[tuple]:
     return None
 
 
+CHEBY_SINGLE_CHIP = ("coarse_cheby is single-chip only (the distributed "
+                     "solve paths smooth with one Jacobi application)")
+DEFLATION_SINGLE_CHIP = ("deflation_k is single-chip only (the recycled "
+                         "GEMVs are not sharded); drop it or run "
+                         "single-device")
+
+
 class NavierStokesSolver:
     """Load mesh -> Stokes init -> step -> dump, on one device.
 
     `device` is explicit ("cuda" or "cpu").  On the card every SpMV
     launches K1 (plane layout) or K2 (scalar-DIA layout; spmv='xla' runs
     K2's plain version instead); on the CPU the kernels' plain PyTorch
-    versions run."""
+    versions run.  The distributed subclass
+    (`parallel.DistributedNavierStokesSolver`) turns off the options it
+    cannot run through the three flags below and overrides the layout and
+    apply hooks."""
+
+    # preconditioner='auto' resolves to the single-device tiers (Chebyshev,
+    # Schur); under distribution to plain two_level, with a warning
+    _auto_single_chip = True
+    _supports_cheby = True
+    _supports_deflation = True
 
     def __init__(self, mesh: Mesh, cfg: Optional[NSConfig] = None,
                  disc: Optional[Discretization] = None, *,
                  device):
         self.user_cfg = cfg or NSConfig()
-        self.cfg = resolve_supported(self.user_cfg, mesh.nv)
+        self.cfg = resolve_supported(self.user_cfg, mesh.nv,
+                                     single_chip=self._auto_single_chip)
+        if self.cfg.krylov.coarse_cheby and not self._supports_cheby:
+            raise ValueError(CHEBY_SINGLE_CHIP)
+        if self.cfg.krylov.deflation_k and not self._supports_deflation:
+            raise ValueError(DEFLATION_SINGLE_CHIP)
         self.device = torch.device(device)
         # TF32 would round the coarse GEMV's operands to 10 mantissa bits:
         # the H100 counterpart of the TPU's bf16 matmul trap (181 vs 69
@@ -302,12 +323,17 @@ class NavierStokesSolver:
         self._plane = kr.spmv == "plane" and \
             kr.preconditioner in ("two_level", "schur")
         if self._plane:
-            self._nbp = plane_nbp(nb, self._coarse_space.nb_pad)
             self._noffs = node_offsets_from_scalar(
                 self.disc.dia_pattern.offsets)
+            self._nbp = self._plane_nbp()
         self._prepared = False
         self.stokes_result: Optional[GMRESResult] = None
         self.history: list = []     # (step, NewtonStats, seconds) per step
+
+    def _plane_nbp(self) -> int:
+        """The padded node count of the plane layout (the distributed
+        subclass pads to whole shards)."""
+        return plane_nbp(self.disc.nv, self._coarse_space.nb_pad)
 
     @property
     def prep_kind(self) -> str:

@@ -17,6 +17,13 @@ by the operator's shape and alignment alone): 'tiled', which streams the
 operator through a shared-memory ring of bulk copies, tile by tile, with
 the x window of a tile in shared memory; and 'rows', one thread per node
 row, which takes every shape.
+
+The ghost-row form (`halo=g > 0`, the JAX package's `x_prehalo=True`):
+each plane of x holds nbp + 2g values, x_b[g + j] for j in [-g, nbp + g),
+where the distributed solver's halo exchange has put the neighbouring
+shards' rows (`parallel/partitioned.py`); with g >= max|D| nothing is
+masked.  The tiled route takes it where g is a multiple of 16 bytes
+(`ghost_width` rounds the halo up to that), else the rows route runs.
 """
 
 from __future__ import annotations
@@ -34,17 +41,20 @@ MAX_OFFSETS = 128         # kMaxOffsets of csrc/plane_dia.cu
 MAX_TILE = 256            # kMaxTile: rows of a tile, one consumer thread each
 ROUTES = ("tiled", "rows")
 
-# Plain integer counters: K1 launches (all, by route, and by form: "n_out x
-# n_in", number of node offsets, route), and calls of the plain version.
+# Plain integer counters: K1 launches (all, by route, those of the ghost-row
+# form, and by form: "n_out x n_in", number of node offsets, route, and
+# "halo" for the ghost-row form), and calls of the plain version.
 kernel_launches = 0
+halo_launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
 form_launches: dict = {}
 plain_calls = 0
 
 
 def reset_counters() -> None:
-    global kernel_launches, plain_calls
+    global kernel_launches, halo_launches, plain_calls
     kernel_launches = 0
+    halo_launches = 0
     plain_calls = 0
     for route in ROUTES:
         route_launches[route] = 0
@@ -116,8 +126,18 @@ def from_planes(xp: torch.Tensor, nb: int, nbp: int) -> torch.Tensor:
     return xp.reshape(4, nbp)[:, :nb].T.reshape(-1)
 
 
+def ghost_width(node_offsets: tuple, itemsize: int) -> int:
+    """The ghost rows a shard's x carries on either side of each plane: the
+    node halo max|D| (at least 1) rounded up to whole 16-byte units, so that
+    the planes of a shard whose row count is a multiple of 16 bytes stay
+    aligned for the tiled route's bulk copies."""
+    unit = band_ring.COPY_ALIGN // itemsize
+    h = max(max(abs(d) for d in node_offsets), 1)
+    return -(-h // unit) * unit
+
+
 def _check(node_offsets, data: torch.Tensor, x: torch.Tensor, n_in: int,
-           nb: int):
+           nb: int, halo: int = 0):
     if data.dim() != 3:
         raise ValueError(f"plane data must be (n_out, NT, nbp), got "
                          f"{tuple(data.shape)}")
@@ -129,9 +149,13 @@ def _check(node_offsets, data: torch.Tensor, x: torch.Tensor, n_in: int,
                          f"1..{MAX_OFFSETS}")
     if nt != n_in * len(node_offsets):
         raise ValueError(f"NT={nt} != n_in * N_D = {n_in * len(node_offsets)}")
-    if x.shape != (n_in * nbp,):
+    band = max(abs(d) for d in node_offsets)
+    if halo < 0 or (halo and halo < band):
+        raise ValueError(f"ghost width {halo}: 0, or at least the band's "
+                         f"{band}")
+    if x.shape != (n_in * (nbp + 2 * halo),):
         raise ValueError(f"x has shape {tuple(x.shape)}, expected "
-                         f"({n_in * nbp},)")
+                         f"({n_in * (nbp + 2 * halo)},)")
     if not 0 <= nb <= nbp:
         raise ValueError(f"nb={nb} outside [0, nbp={nbp}]")
     if data.dtype != x.dtype:
@@ -142,24 +166,26 @@ def _check(node_offsets, data: torch.Tensor, x: torch.Tensor, n_in: int,
 
 
 def spmv_planes_plain(node_offsets: tuple, data: torch.Tensor,
-                      x: torch.Tensor, *, n_in: int, nb: int) -> torch.Tensor:
+                      x: torch.Tensor, *, n_in: int, nb: int,
+                      halo: int = 0) -> torch.Tensor:
     """Plain PyTorch K1: the loop of shifted-slice multiply-adds.
 
     Same terms in the same order as the kernel; x_b[i + D] counts as zero
-    outside [0, nbp) and rows >= nb come out as exact zeros."""
+    outside [0, nbp) (with `halo` > 0 it comes from the ghost rows) and rows
+    >= nb come out as exact zeros."""
     global plain_calls
-    n_out, nbp = _check(node_offsets, data, x, n_in, nb)
+    n_out, nbp = _check(node_offsets, data, x, n_in, nb, halo)
     plain_calls += 1
     acc_dtype = torch.promote_types(data.dtype, torch.float32)
-    xs = x.reshape(n_in, nbp).to(acc_dtype)
+    xs = x.reshape(n_in, nbp + 2 * halo).to(acc_dtype)
     y = torch.zeros((n_out, nbp), dtype=acc_dtype, device=x.device)
     j = 0
     for d in node_offsets:
-        lo, hi = max(0, -d), min(nbp, nbp - d)
+        lo, hi = (0, nbp) if halo else (max(0, -d), min(nbp, nbp - d))
         for b in range(n_in):
             if hi > lo:
                 y[:, lo:hi] += data[:, j, lo:hi].to(acc_dtype) \
-                    * xs[b, lo + d:hi + d]
+                    * xs[b, halo + lo + d:halo + hi + d]
             j += 1
     y[:, nb:] = 0
     return y.to(x.dtype).reshape(-1)
@@ -183,18 +209,21 @@ class TilePlan(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def tile_plan(node_offsets: tuple, n_out: int, n_in: int, nbp: int,
-              itemsize: int, n_sm: int = band_ring.N_SM) -> TilePlan | None:
-    """The tiled route's plan for an (n_out, n_in * N_D, nbp) operator, or
-    None where the shape does not fit the route: a row of nbp values is not
-    a multiple of 16 bytes (a bulk copy's alignment), or the x window and
-    two stages do not fit shared memory.
+              itemsize: int, n_sm: int = band_ring.N_SM,
+              halo: int = 0) -> TilePlan | None:
+    """The tiled route's plan for an (n_out, n_in * N_D, nbp) operator (x
+    with `halo` ghost rows on either side of each plane), or None where the
+    shape does not fit the route: a row of nbp values, or the ghost width,
+    is not a multiple of 16 bytes (a bulk copy's alignment), or the x
+    window and two stages do not fit shared memory.
 
     Tiles fill the card in whole waves of one block per SM (`wave_tile`);
     tile t owns rows [t * tn, min((t + 1) * tn, nbp)) and reads
     x_b[t * tn + min(D) .. t * tn + tn + max(D)), zero outside [0, nbp),
     the window's ends rounded outwards to 16 bytes.  Cached: a solver loop
     asks for the same plan at every launch."""
-    if (nbp * itemsize) % band_ring.COPY_ALIGN:
+    if (nbp * itemsize) % band_ring.COPY_ALIGN \
+            or (halo * itemsize) % band_ring.COPY_ALIGN:
         return None
     tn = band_ring.wave_tile(nbp, n_sm, MAX_TILE)
     n_tiles = -(-nbp // tn)
@@ -211,14 +240,15 @@ def tile_plan(node_offsets: tuple, n_out: int, n_in: int, nbp: int,
 
 
 def tiled_plan(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor,
-               n_in: int, n_sm: int = band_ring.N_SM) -> TilePlan | None:
+               n_in: int, n_sm: int = band_ring.N_SM,
+               halo: int = 0) -> TilePlan | None:
     """The tiled route's plan for these tensors, or None where the route
     does not take them: `tile_plan` of their shape, and `data` and `x`
     themselves must start on 16 bytes.  One cache lookup and two address
     checks: this is all a launch decides."""
     n_out, _, nbp = data.shape
     plan = tile_plan(node_offsets, n_out, n_in, nbp, data.element_size(),
-                     n_sm)
+                     n_sm, halo)
     if data.data_ptr() % band_ring.COPY_ALIGN \
             or x.data_ptr() % band_ring.COPY_ALIGN:
         return None
@@ -226,13 +256,13 @@ def tiled_plan(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor,
 
 
 def plane_route(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor,
-                n_in: int, n_sm: int = band_ring.N_SM) -> str:
+                n_in: int, n_sm: int = band_ring.N_SM, halo: int = 0) -> str:
     """Which K1 route `spmv_planes` takes for this operator: 'tiled' where
-    `tiled_plan` has a plan (rows on 16 bytes, window and ring in shared
-    memory), else 'rows'.  Nothing but the shapes and the alignment
-    decides."""
-    return "rows" if tiled_plan(node_offsets, data, x, n_in, n_sm) is None \
-        else "tiled"
+    `tiled_plan` has a plan (rows and ghost width on 16 bytes, window and
+    ring in shared memory), else 'rows'.  Nothing but the shapes and the
+    alignment decides."""
+    plan = tiled_plan(node_offsets, data, x, n_in, n_sm, halo)
+    return "rows" if plan is None else "tiled"
 
 
 _C_FUNCS = {
@@ -252,22 +282,23 @@ def _kernel_fn(route: str, dtype: torch.dtype):
     plan_args = [ctypes.c_int] * 3 if route == "tiled" else []
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.POINTER(ctypes.c_int), *plan_args,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   *plan_args, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
                      x: torch.Tensor, *, n_in: int, nb: int,
-                     route: str | None = None) -> torch.Tensor:
+                     route: str | None = None,
+                     halo: int = 0) -> torch.Tensor:
     """K1 on the card: one launch on the current stream, no sync.
 
     `route` None takes `plane_route`'s choice; 'tiled' or 'rows' forces
     one (the comparison of the two on the card) and raises where the
     operator does not fit it.  No route falls back to another."""
-    global kernel_launches
-    n_out, nbp = _check(node_offsets, data, x, n_in, nb)
+    global kernel_launches, halo_launches
+    n_out, nbp = _check(node_offsets, data, x, n_in, nb, halo)
     if data.device.type != "cuda":
         raise ValueError(f"K1 needs CUDA tensors, got {data.device}")
     if data.dtype not in (torch.float32, torch.float64):
@@ -279,14 +310,15 @@ def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
     plan = None
     if route != "rows":
         plan = tiled_plan(node_offsets, data, x, n_in,
-                          band_ring.sm_count(x.device))
+                          band_ring.sm_count(x.device), halo)
         if route is None:
             route = "rows" if plan is None else "tiled"
         elif plan is None:
             raise ValueError(
                 f"K1's tiled route does not take this operator (nbp={nbp}, "
-                f"offsets {min(node_offsets)}..{max(node_offsets)}): its "
-                "rows must start on 16 bytes and its x window fit "
+                f"ghost width {halo}, offsets {min(node_offsets)}.."
+                f"{max(node_offsets)}): its rows and ghost width must be "
+                "whole 16-byte units and its x window fit "
                 f"{band_ring.SMEM_LIMIT} bytes of shared memory")
     plan_args = () if plan is None else (plan.tn, plan.stages, plan.grid)
     fn = _kernel_fn(route, data.dtype)
@@ -295,31 +327,37 @@ def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n_out, n_in,
-                len(node_offsets), nb, nbp, offs, *plan_args, stream)
+                len(node_offsets), nb, nbp, halo, offs, *plan_args, stream)
     if rc != 0:
         raise RuntimeError(f"K1 launch failed ({route}): cudaError {rc}")
     kernel_launches += 1
     route_launches[route] += 1
     form = (f"{n_out}x{n_in}", len(node_offsets), route)
+    if halo:
+        halo_launches += 1
+        form += ("halo",)
     form_launches[form] = form_launches.get(form, 0) + 1
     return y
 
 
 def spmv_planes(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor, *,
-                n_in: int, nb: int) -> torch.Tensor:
+                n_in: int, nb: int, halo: int = 0) -> torch.Tensor:
     """y = A x for an n_out x n_in plane-coupling operator.
 
     The counterpart of the JAX package's `spmv_planes_pallas`: data
     (n_out, n_in * N_D, nbp), term order `plane_terms(node_offsets, n_in)`,
-    x flat plane-major (n_in * nbp,), returns (n_out * nbp,).  A CUDA
-    tensor goes through K1, by the route `plane_route` names (or raises); a
-    CPU tensor through the plain version."""
+    x flat plane-major (n_in * nbp,), or (n_in * (nbp + 2 halo),) in the
+    ghost-row form, returns (n_out * nbp,).  A CUDA tensor goes through K1,
+    by the route `plane_route` names (or raises); a CPU tensor through the
+    plain version."""
     if x.device.type == "cpu":
-        return spmv_planes_plain(node_offsets, data, x, n_in=n_in, nb=nb)
-    return spmv_planes_cuda(node_offsets, data, x, n_in=n_in, nb=nb)
+        return spmv_planes_plain(node_offsets, data, x, n_in=n_in, nb=nb,
+                                 halo=halo)
+    return spmv_planes_cuda(node_offsets, data, x, n_in=n_in, nb=nb,
+                            halo=halo)
 
 
 def spmv_plane(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor, *,
-               nb: int) -> torch.Tensor:
+               nb: int, halo: int = 0) -> torch.Tensor:
     """The flagship 4x4 form of `spmv_planes` (`spmv_plane_pallas`)."""
-    return spmv_planes(node_offsets, data, x, n_in=4, nb=nb)
+    return spmv_planes(node_offsets, data, x, n_in=4, nb=nb, halo=halo)

@@ -19,13 +19,22 @@
         --ca-gmres --ca-basis newton --restart 12
     python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 2 \
         --deflation-k 16
+    python -m navierstokes_tpu_torch.run --matrix-id 6 --steps 3 \
+        --devices 4
+    python -m navierstokes_tpu_torch.run --nx 24 --ny 2 --nz 2 --steps 2 \
+        --devices 4 --device cpu
 
 Runs on one device (`--device`, default `cuda`; `cpu` runs the kernels'
-plain PyTorch versions).  As in the JAX CLI, `--dtype` defaults to float32
-on the card and float64 on the CPU.  float32 is the flagship
-configuration: the measured Newton tolerances and `default_f32_krylov()`,
-whose 'auto' preconditioner takes the Schur tier above 150k rows
-(matrices 7-10).  float64 takes the JAX CLI's float64 defaults:
+plain PyTorch versions).  `--devices N` (N > 1) runs the distributed
+solver (`parallel.DistributedNavierStokesSolver`, the mesh band-ordered
+first, as in the JAX CLI) with one shard on each of cuda:0..N-1, and
+raises where fewer than N cards exist (the JAX CLI takes the devices there
+are); with `--device cpu` the N shards all run on the CPU.  As in the JAX
+CLI, `--dtype` defaults to float32 on the card and float64 on the CPU.
+float32 is the flagship configuration: the measured Newton tolerances and
+`default_f32_krylov()`, whose 'auto' preconditioner takes the Schur tier
+above 150k rows (matrices 7-10; under distribution 'auto' is plain
+two_level, with a warning).  float64 takes the JAX CLI's float64 defaults:
 `SolverConfig()`, which is block-Jacobi with a Neumann-2 boost on the
 scalar-DIA layout.  The Krylov
 flags override both the Newton and the Stokes solver configs.  Per-step
@@ -86,7 +95,7 @@ _KRYLOV_FLAGS = ("spmv", "preconditioner", "neumann_order", "coarse_agg",
 
 def main(argv=None) -> Optional[RunOutput]:
     p = argparse.ArgumentParser(
-        description="Transient NS solver on PyTorch (one device)")
+        description="Transient NS solver on PyTorch")
     p.add_argument("--matrix-id", type=int,
                    help="synthetic scaling-series mesh 1-10")
     p.add_argument("--nx", type=int, help="custom channel mesh nx")
@@ -188,15 +197,11 @@ def main(argv=None) -> Optional[RunOutput]:
                    choices=["monomial", "newton"],
                    help="ca_gmres basis: monomial, or the Leja-ordered "
                         "Newton basis (the float32-stable one)")
-    # The one flag of the JAX CLI whose slice is not ported yet: it raises.
     p.add_argument("--devices", type=int, default=0,
-                   help=">1: distributed solver (not ported)")
+                   help=">1: distributed solver, one shard per card "
+                        "(cuda:0..N-1), or N shards on the CPU with "
+                        "--device cpu")
     args = p.parse_args(argv)
-
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 is not ported to navierstokes_tpu_torch yet "
-            "(ROADMAP slice 15: distribution)")
 
     from navierstokes_tpu_torch.config import (
         NewtonConfig,
@@ -210,12 +215,25 @@ def main(argv=None) -> Optional[RunOutput]:
     )
     from navierstokes_tpu_torch.mesh.gmsh import read_gmsh
     from navierstokes_tpu_torch.model import NavierStokesSolver
+    from navierstokes_tpu_torch.parallel import DistributedNavierStokesSolver
     from navierstokes_tpu_torch.utils.profiling import EventLog
 
     device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error("--device cuda but no CUDA device is available "
                 "(pass --device cpu to run on the CPU)")
+    devices = None
+    if args.devices > 1:
+        if device.type == "cpu":
+            devices = [device] * args.devices
+        else:
+            have = torch.cuda.device_count()
+            if have < args.devices:
+                raise ValueError(
+                    f"--devices {args.devices}: {have} CUDA device(s) "
+                    "here; the distributed solver takes one shard per card "
+                    "(with --device cpu the shards run on the CPU)")
+            devices = [torch.device("cuda", i) for i in range(args.devices)]
 
     def sync():
         if device.type == "cuda":
@@ -262,7 +280,13 @@ def main(argv=None) -> Optional[RunOutput]:
     print(f"device={device} dtype={dtype} nodes={mesh.nv} "
           f"tets={mesh.ne}")
     with events.event("setup"):
-        solver = NavierStokesSolver(mesh, cfg, device=device)
+        if devices is None:
+            solver = NavierStokesSolver(mesh, cfg, device=device)
+        else:
+            solver, _ = DistributedNavierStokesSolver.from_mesh(
+                mesh, cfg, devices=devices)
+            print(f"distributed: {solver.placement()}; shard kernel "
+                  f"{solver.shard_kernel_name()}")
         sync()
     kr = solver.cfg.krylov
     print(f"preconditioner={kr.preconditioner} spmv={kr.spmv} "

@@ -11,11 +11,12 @@ The projection is four torch GEMVs on the live rows (`cgs2='xla'`) or, with
 `cgs2_kernel=True` (`cgs2='pallas'|'pallas_comp'`), one call of the fused
 projection `ops/cgs2.cgs2_project` (kernel K3 on the card), for any n.
 
-The Krylov vectors stay on the device.  Each inner iteration fetches the
-new Hessenberg column (k+2 numbers) in one host sync; the rotations, the
-tolerance tests and the small triangular solve run on the host, in numpy
-scalars of the working dtype so that float32 rounds as it does on the
-device.
+The Krylov vectors stay on the device: one tensor, or the shards of the
+distributed solver (`solvers/vectors.py`; K3 takes one tensor only).  Each
+inner iteration fetches the new Hessenberg column (k+2 numbers) in one host
+sync; the rotations, the tolerance tests and the small triangular solve run
+on the host, in numpy scalars of the working dtype so that float32 rounds
+as it does on the device.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch.ops.cgs2 import cgs2_project
+from navierstokes_tpu_torch.solvers import vectors as vs
 
 
 class GMRESResult(NamedTuple):
@@ -67,32 +69,34 @@ def gmres(
 ) -> GMRESResult:
     """cgs2_kernel=True orthogonalizes through the fused projection (K3 on
     the card), cgs2_compensated with its compensated h sums."""
-    n = b.shape[0]
+    if cgs2_kernel and isinstance(b, vs.Shards):
+        raise ValueError("the fused CGS2 projection (K3) takes one vector: "
+                         "its inner products cannot be summed across shards")
     dtype, device = b.dtype, b.device
     sc = scalar_type(dtype)
     eps4 = sc(4.0) * np.finfo(sc).eps
     tiny = sc(1e-300)            # rounds to 0 in float32, as in JAX
     m = restart
     M = precond or _identity
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    x = vs.zeros_like(b) if x0 is None else x0.clone()
     one = torch.ones((), dtype=dtype, device=device)
 
     def pre_residual(x):
         return M(b - matvec(x))
 
     r = pre_residual(x)
-    beta_t = torch.linalg.norm(r)
+    beta_t = vs.norm(r)
     beta0 = sc(beta_t.item())
     tol = max(sc(rtol) * beta0, sc(atol))
 
     iters, resnorm = 0, beta0
     converged, stalled = bool(beta0 <= tol), False
-    V = torch.zeros((m + 1, n), dtype=dtype, device=device)
+    V = vs.basis(m + 1, b)
     first = True
     while not converged and not stalled and iters < maxiter and resnorm > 0:
         if not first:
             r = pre_residual(x)
-            beta_t = torch.linalg.norm(r)
+            beta_t = vs.norm(r)
         first = False
         beta = sc(beta_t.item())
         prev_resnorm = resnorm
@@ -111,13 +115,8 @@ def gmres(
                 w, hf = cgs2_project(V, w, k, compensated=cgs2_compensated)
                 h_t = hf[:k + 1]
             else:
-                Vk = V[:k + 1]                   # the live rows 0..k
-                h1 = Vk @ w
-                w = w - Vk.T @ h1
-                h2 = Vk @ w
-                w = w - Vk.T @ h2
-                h_t = h1 + h2
-            hk1_t = torch.linalg.norm(w)
+                w, h_t = vs.cgs2(V, w, k)
+            hk1_t = vs.norm(w)
             V[k + 1] = w / torch.where(hk1_t > 0, hk1_t, one)
             col = torch.cat([h_t, hk1_t[None]]).cpu().numpy()  # one sync
             h, hk1 = col[:k + 1], col[k + 1]
@@ -151,7 +150,7 @@ def gmres(
         y = _back_substitute(R, g, k)
         if k:
             y_t = torch.as_tensor(y[:k], device=device)
-            x = x + V[:k].T @ y_t
+            x = x + vs.combine(V, k, y_t)
         resnorm = abs(g[k])
         stalled = k == 0 or (brk and resnorm >= sc(0.99) * prev_resnorm)
         iters += k

@@ -17,7 +17,12 @@ Per restart cycle (Walker/Hoemmen-style):
   5. x += Q_m y; restart until the true preconditioned residual converges
      or stops decreasing.
 Iterations are counted as in the JAX package: m per cycle.  The shifts
-and the Leja order are computed on the host in float64.
+and the Leja order are computed on the host in float64.  The vectors are
+one tensor or the distributed solver's shards (`solvers/vectors.py`; the
+tall-skinny QR is then a QR per shard and one of the stacked R factors),
+and `powers_fn` takes the whole raw power stack from one call: on the
+distributed 'bj' path the one-exchange sweep
+`parallel.partitioned_spmv_dia_power`.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from navierstokes_tpu_torch.solvers import vectors as vs
 from navierstokes_tpu_torch.solvers.gmres import GMRESResult, scalar_type
 
 
@@ -75,12 +81,18 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
              x0: Optional[torch.Tensor] = None, *,
              precond: Optional[Callable] = None, basis: int = 12,
              rtol: float = 1e-10, atol: float = 1e-12, maxiter: int = 2000,
-             shifts: Optional[tuple] = None) -> GMRESResult:
+             shifts: Optional[tuple] = None,
+             powers_fn: Optional[Callable] = None) -> GMRESResult:
     """Restarted s-step GMRES with basis length `basis` (= s = m per
     cycle); `shifts` (at least m floats, from `newton_shifts`) switches the
-    basis from monomial to Newton.  The JAX package's `powers_fn` (a
-    distributed matrix-powers sweep) is not taken: one device applies
-    `matvec` m times."""
+    basis from monomial to Newton.  `powers_fn(v, m)` gives the raw
+    monomial stack [A v, ..., A^m v] (n, m) in one call (the preconditioner
+    folded into A; the JAX package's `powers_fn`); the normalized columns
+    and the recurrence coefficients come from its column norms.  Without
+    it `matvec` is applied m times."""
+    if powers_fn is not None and (precond is not None or shifts is not None):
+        raise ValueError("powers_fn takes the monomial basis with the "
+                         "preconditioner folded into A")
     dtype, device = b.dtype, b.device
     sc = scalar_type(dtype)
     m = basis
@@ -89,7 +101,7 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
             raise ValueError(f"need >= basis={m} shifts, got {len(shifts)}")
         shifts = tuple(shifts[:m])
     M = precond or _identity
-    x = torch.zeros_like(b) if x0 is None else x0.clone()
+    x = vs.zeros_like(b) if x0 is None else x0.clone()
     # 1e-300 in the working dtype: 0 in float32, as in the JAX package
     eps_floor = torch.tensor(1e-300, dtype=dtype, device=device)
     th = [0.0] * m if shifts is None else list(shifts)
@@ -97,21 +109,35 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
     def pre_residual(x):
         return M(b - matvec(x))
 
-    def cycle(x):
-        r = pre_residual(x)
-        v0norm = torch.linalg.norm(r)
-        v = r / torch.maximum(v0norm, eps_floor)
+    def basis_powers(v):
+        """[v | the normalized raw powers], and the alphas from the raw
+        column norms (v_{i+1} = raw_{i+1} / |raw_{i+1}|)."""
+        raw = powers_fn(v, m)
+        norms = vs.column_norms(raw)
+        V = vs.prepend_column(v, raw / torch.maximum(norms, eps_floor)[None])
+        prev = torch.cat([torch.ones((1,), dtype=dtype, device=device),
+                          norms[:-1]])
+        return V, norms / torch.maximum(prev, eps_floor)
+
+    def basis_chain(v):
         cols, alphas = [v], []
         for i in range(m):
             w = M(matvec(v)) - th[i] * v
-            alpha = torch.linalg.norm(w)
+            alpha = vs.norm(w)
             v = w / torch.maximum(alpha, eps_floor)
             cols.append(v)
             alphas.append(alpha)
-        Q, R = torch.linalg.qr(torch.stack(cols, dim=1))    # (n, m+1)
+        return vs.columns(cols), torch.stack(alphas)
+
+    def cycle(x):
+        r = pre_residual(x)
+        v0norm = vs.norm(r)
+        v = r / torch.maximum(v0norm, eps_floor)
+        V, alphas = (basis_chain if powers_fn is None else basis_powers)(v)
+        Q, R = vs.qr(V)                                     # (n, m+1)
         S = torch.zeros((m + 1, m), dtype=dtype, device=device)
         idx = torch.arange(m, device=device)
-        S[idx + 1, idx] = torch.stack(alphas)
+        S[idx + 1, idx] = alphas
         if shifts is not None:
             S[idx, idx] = torch.tensor(shifts, dtype=dtype, device=device)
         H = torch.linalg.solve_triangular(R[:m, :m].T, (R @ S).T,
@@ -121,9 +147,9 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
         gh = Qh.T @ g
         y = torch.linalg.solve_triangular(Rh[:m], gh[:m, None],
                                           upper=True)[:, 0]
-        return x + Q[:, :m] @ y
+        return x + vs.apply_columns(Q, m, y)
 
-    beta0 = sc(torch.linalg.norm(pre_residual(x)).item())
+    beta0 = sc(vs.norm(pre_residual(x)).item())
     tol = max(sc(rtol) * beta0, sc(atol))
     shrink = sc(1 - 1e-12)          # 1 in float32, as in the JAX package
     iters, prev_res = 0, beta0
@@ -131,7 +157,7 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
     while not converged and not stalled and iters < maxiter:
         x = cycle(x)
         # the true preconditioned residual decides convergence
-        true_res = sc(torch.linalg.norm(pre_residual(x)).item())
+        true_res = sc(vs.norm(pre_residual(x)).item())
         stalled = not (true_res < prev_res * shrink) and true_res > tol
         iters += m
         prev_res = true_res

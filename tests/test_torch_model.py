@@ -526,16 +526,21 @@ def test_stokes_krylov_only_sets_the_solve():
         resolve_supported(bad, 1000)
 
 
-@pytest.mark.parametrize("argv,slice_no", [
-    (["--nx", "2", "--devices", "2"], 15),
+@pytest.mark.parametrize("argv,cards", [
+    (["--nx", "2", "--devices", "2"], 1),
 ])
-def test_cli_flags_outside_the_slice_raise(argv, slice_no):
-    """Every flag of the JAX CLI is accepted; `--devices > 1` (distribution,
-    not ported) raises naming its slice (`--cpu` and the Schur flags run:
+def test_cli_flags_outside_the_slice_raise(argv, cards, monkeypatch):
+    """Every flag of the JAX CLI is accepted and runs (`--devices` since
+    slice 15: tests/test_torch_distributed.py; `--cpu` and the Schur flags:
     test_cli_schur_flags_run; the I/O flags: test_cli_io_flags_run; the
-    solver-option flags: test_cli_option_flags_run)."""
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
-        run.main(argv + ["--device", "cpu"])
+    solver-option flags: test_cli_option_flags_run).  The one refusal left
+    is deliberate: `--devices N` on the card raises where fewer than N
+    cards exist (the JAX CLI takes the devices there are); the count is
+    faked here."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    with pytest.raises(ValueError, match="--devices 2: 1 CUDA device"):
+        run.main(argv + ["--device", "cuda"])
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -704,6 +709,7 @@ def test_import_leaves_jax_out():
             "import navierstokes_tpu_torch.solvers.cg\n"
             "import navierstokes_tpu_torch.solvers.deflation\n"
             "import navierstokes_tpu_torch.sparse.bcsr\n"
+            "import navierstokes_tpu_torch.parallel.dryrun\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'navierstokes_tpu.')) or m == 'navierstokes_tpu']\n"
             "assert not bad, bad\n"
