@@ -92,8 +92,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      with the Schur tier forced, and on the block-Jacobi path, each run
      twice: the second run must repeat the first bit for bit;
  18. the benchmark entry point `bench.spmv_bench.main` at matrix 6 for
-     spmv, spm2v, spm3v and spm4v: its lines, the fused K4 variant within
-     rel 1e-5 of the reference, K4 counted;
+     spm2v, spm3v and spm4v (spmv is phase (l)): its lines, the fused K4
+     variant within rel 1e-5 of the reference, K4 counted;
  19. the bench tools of the Schur tier at matrix 8: `transient_bench` (the
      product default, 3 steps; its TRANSIENT line, finite numbers) and
      `gmres_decomp` (every part of the 'sch' prep, the four GEMVs and K3);
@@ -153,6 +153,20 @@ then distribution (ROADMAP slice 15), four shards on the one card:
      ghost-row launch on the extended window): one solve of the first
      Newton system on the card and on the CPU from one state, GMRES
      within 1, solutions within rel 1e-6;
+then the rest of the package (ROADMAP slice 16), no new kernel:
+ (l) `spmv_bench.main` at matrix 6 (spmv, f32): the BCSR oracle and the
+     block-ELL gather (plain PyTorch, as the JAX package's XLA forms) on
+     the card within rel 1e-5 of the DIA reference, timed beside K2 and
+     K1 in the same run;
+ (m) `create_mat --matrix-id 3` on the card (float64) and on the CPU: the
+     four files, each .mtx re-read by `read_mtx`, headers and (row, col)
+     lists equal, values within rel 1e-12, the .npz likewise;
+ (n) `layout_census --ids 1,...,8` with the native host library loaded:
+     every column but build_s equal to `benchlogs/layout_census.txt`;
+ (o) `accuracy_drift --matrix-id 4 --steps 12` on the card (f32 'tlp' K1
+     against f64 'bj' K2), to the bars of `tests/test_accuracy.py`: max
+     drift < 8e-3 and drift(12) < 1.5 drift(3); then `ca_bench --matrix-id
+     6` ('tl', K2): the fixed-count table and the tolerance sweep;
 then each phase's wall seconds, the launches of the solver-option and the
 distributed paths, the kernel summary line and, last, the device line.
 """
@@ -177,9 +191,13 @@ import warnings
 import numpy as np
 import torch
 
-from navierstokes_tpu_torch import run
+from navierstokes_tpu_torch import native, run
 from navierstokes_tpu_torch.bench import (
+    accuracy_drift,
+    ca_bench,
+    create_mat,
     gmres_decomp,
+    layout_census,
     spmv_bench,
     transient_bench,
 )
@@ -193,6 +211,7 @@ from navierstokes_tpu_torch.fem.assembly import (
 )
 from navierstokes_tpu_torch.fem.dirichlet import zero_rows_bcsr
 from navierstokes_tpu_torch.io.dat import HEADER, read_petsc_vec
+from navierstokes_tpu_torch.io.mtx import load_bcsr_npz, read_mtx
 from navierstokes_tpu_torch.mesh.box import channel_mesh, scaling_series_mesh
 from navierstokes_tpu_torch.mesh.gmsh import write_gmsh
 from navierstokes_tpu_torch.model import NavierStokesSolver
@@ -486,9 +505,16 @@ def build_phase():
     if libs != sorted(cuda_lib.SOURCES):
         raise AssertionError(f"KERNELS builds {libs}, the sources are "
                              f"{cuda_lib.SOURCES}")
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as ex:
+        # the native host library (g++, not a kernel) builds beside them
+        host = ex.submit(native.available)
         built = list(ex.map(cuda_lib.load, libs))
-    print(f"K1-K4 built in {time.perf_counter() - t0:.3f} s (parallel)")
+        if not host.result():
+            raise AssertionError("the native host library did not load "
+                                 "(no g++)")
+    print(f"K1-K4 and the native host library built in "
+          f"{time.perf_counter() - t0:.3f} s (parallel); pattern build: "
+          f"{native.backend()}")
     for lib, (_, info) in zip(libs, built):
         print(f"{lib}: {info.seconds:.3f} s (cached={info.cached}) -> "
               f"{os.path.relpath(info.path, ROOT)}")
@@ -1732,7 +1758,7 @@ def golden_phase(dev):
 
 
 def bench_phase():
-    argv = ["--matrices", "6", "--kernel", "spmv,spm2v,spm3v,spm4v"]
+    argv = ["--matrices", "6", "--kernel", "spm2v,spm3v,spm4v"]
     phase("benchmark entry point: bench.spmv_bench.main(" + " ".join(argv)
           + ")")
     reset_counters()
@@ -2617,6 +2643,127 @@ def dist_scalar_phase(dev, matrix_id: int = 6) -> dict:
             "CA K2 halo": cg_["K2 halo"]}
 
 
+# --- the rest of the package (ROADMAP slice 16): phases (l)-(o) -----------
+
+def block_ell_bench_phase() -> dict:
+    """(l) The bench's two block-format variants on the card at matrix 6:
+    within rel 1e-5 of the DIA reference (f32), timed in the same run as
+    K2 and K1; returns each variant's us."""
+    argv = ["--matrices", "6", "--kernel", "spmv"]
+    phase("(l) spmv_bench.main(" + " ".join(argv) + "): the BCSR oracle "
+          "and the block-ELL gather beside K2 and K1")
+    reset_counters()
+    rows = spmv_bench.main(argv)
+    counts = counters()
+    print(f"kernel counts in spmv_bench: {counts}")
+    us = {r["name"]: r["us"] for r in rows}
+    for name in spmv_bench.BLOCK_VARIANTS:
+        err = next(r["rel_err"] for r in rows if r["name"] == name)
+        if not err <= 1e-5:
+            raise AssertionError(f"{name}: rel err {err}")
+    if counts["K1"] <= 0 or counts["K2"] <= 0:
+        raise AssertionError(f"kernel counts {counts}")
+    return us
+
+
+def create_mat_phase(matrix_id: int = 3) -> None:
+    """(m) create_mat on the card (float64) and on the CPU: every .mtx
+    re-read, headers and (row, col) equal, values within rel 1e-12; the
+    .npz likewise."""
+    phase(f"(m) create_mat --matrix-id {matrix_id} on the card and on the "
+          "CPU, re-read by read_mtx")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--matrix-id", str(matrix_id), "--out"]
+        t0 = time.perf_counter()
+        card = create_mat.main(argv + [os.path.join(tmp, "card")])
+        t1 = time.perf_counter()
+        host = create_mat.main(argv + [os.path.join(tmp, "cpu"), "--device",
+                                       "cpu"])
+        print(f"create_mat: card {t1 - t0:.3f} s, CPU "
+              f"{time.perf_counter() - t1:.3f} s")
+        for kind in ("aij", "aijp", "baij4"):
+            heads = []
+            for path in (card[kind], host[kind]):
+                with open(path) as f:
+                    heads.append((f.readline(), f.readline()))
+            n_a, r_a, c_a, v_a = read_mtx(card[kind])
+            n_b, r_b, c_b, v_b = read_mtx(host[kind])
+            err = float(np.linalg.norm(v_a - v_b) / np.linalg.norm(v_b))
+            print(f"{kind}: {heads[0][1].strip()}, values rel {err:.3e}")
+            if heads[0] != heads[1] or n_a != n_b or not (
+                    np.array_equal(r_a, r_b) and np.array_equal(c_a, c_b)) \
+                    or not err <= 1e-12:
+                raise AssertionError(f"{kind}: the card's file differs")
+        a, b = load_bcsr_npz(card["npz"]), load_bcsr_npz(host["npz"])
+        err = rel_gap(a.values, b.values)
+        if not (np.array_equal(a.indptr, b.indptr)
+                and np.array_equal(a.indices, b.indices) and err <= 1e-12):
+            raise AssertionError(f"npz differs (values rel {err:.3e})")
+
+
+def census_reference() -> dict:
+    """The JAX package's census rows, by id, from
+    `benchlogs/layout_census.txt` (the commented table)."""
+    rows = {}
+    with open(os.path.join(ROOT, "benchlogs", "layout_census.txt")) as f:
+        for line in f:
+            parts = line.lstrip("#").split()
+            if len(parts) == 10 and parts[0].isdigit():
+                rows[int(parts[0])] = parts
+    return rows
+
+
+def census_phase(ids=tuple(range(1, 9))) -> None:
+    """(n) The census with the native host library: every column but
+    build_s equal to the JAX package's logged table."""
+    phase("(n) layout_census --ids " + ",".join(map(str, ids))
+          + " (the native pattern build)")
+    if not native.available():
+        raise AssertionError("the native host library is not loaded")
+    rows = layout_census.main(["--ids", ",".join(map(str, ids))])
+    ref = census_reference()
+    keys = ("id", "ndof", "nnzb", "K", "N_D", "span_contig", "raw_mb",
+            "dia_mb", "bdia_mb", "bdia_vs_dia")
+    print("census build seconds: " + ", ".join(
+        f"{r['id']}: {r['build_s']}" for r in rows))
+    for r in rows:
+        if [str(r[k]) for k in keys] != ref[r["id"]]:
+            raise AssertionError(f"census row {r} against {ref[r['id']]}")
+
+
+def drift_phase(dev, matrix_id: int = 4, steps: int = 12) -> dict:
+    """(o) The f32-against-f64 drift curve on the card, held to the JAX
+    package's slow test's bars; returns the rows and the counts."""
+    phase(f"(o) accuracy_drift --matrix-id {matrix_id} --steps {steps} on "
+          "the card (f32 'tlp' against f64 'bj')")
+    reset_counters()
+    res = accuracy_drift.run_drift(matrix_id, steps, 1e-3, device=dev)
+    counts = counters()
+    print(f"kernel counts in accuracy_drift: {counts}")
+    d = dict(res.rows)
+    # tests/test_accuracy.py:65-79: the bound and the non-secular trend
+    if not (max(d.values()) < 8e-3 and d[steps] < 1.5 * d[3]):
+        raise AssertionError(f"drift curve {res.rows}")
+    if counts["K1"] <= 0 or counts["K2"] <= 0 or not no_plain_calls(counts):
+        raise AssertionError(f"kernel counts {counts}")
+    return {"rows": res.rows, "counts": counts}
+
+
+def ca_bench_phase(matrix_id: int = 6) -> dict:
+    """(o) ca_bench on the card: both tables, GMRES(30) converged, every
+    apply through K2."""
+    argv = ["--matrix-id", str(matrix_id)]
+    phase("(o) ca_bench.main(" + " ".join(argv) + ")")
+    reset_counters()
+    res = ca_bench.main(argv)
+    counts = counters()
+    print(f"kernel counts in ca_bench: {counts}")
+    if not res["sweep"]["gmres:30"][3] or counts["K2"] <= 0 \
+            or not no_plain_calls(counts):
+        raise AssertionError(f"ca_bench: {res}, {counts}")
+    return res
+
+
 def _sync(dev) -> None:
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
@@ -2686,6 +2833,14 @@ def main() -> int:
                    "(j) main path": dist_main_phase(dev),
                    "(k) scalar paths": dist_scalar_phase(dev)}
     print("the distributed paths: " + json.dumps(distributed, default=str))
+    block_us = block_ell_bench_phase()
+    create_mat_phase()
+    census_phase()
+    drift = drift_phase(dev)
+    ca = ca_bench_phase()
+    print("the rest of the package: " + json.dumps(
+        {"(l) us": block_us, "(o) drift": drift["rows"],
+         "(o) ca_bench": ca}, default=str))
 
     print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
           f"default {f64_launches}, bf16 form on 'tl' {bf16_launches}; K3 "

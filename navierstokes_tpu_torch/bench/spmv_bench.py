@@ -7,12 +7,14 @@ flags and the same lines:
 
 over the synthetic scaling series.  The first variant, the plain PyTorch
 DIA SpMV, is the reference (`ref`) the others are held against.  Variants:
-K2 (`csrc/dia.cu`), K2's bfloat16 form on the operator stored in bf16
-(`matvec_dtype`; its rel err is the bf16 rounding of the operator), K1 on
-the component-plane layout (`csrc/plane_dia.cu`, timed in its own layout)
-and, for spm2v/spm3v/spm4v, the fused one-sweep A^p x, K4
-(`csrc/mpk.cu`).  The JAX variants whose layers are not ported print one
-line naming their ROADMAP slice.
+up to 200,000 rows the BCSR segment-sum oracle and the block-ELL gather
+(`ops/spmv.py`, plain PyTorch as in the JAX package; above, where their
+layouts no longer fit the JAX package's budget, one line says they are
+skipped); K2 (`csrc/dia.cu`), K2's bfloat16 form on the operator stored
+in bf16 (`matvec_dtype`; its rel err is the bf16 rounding of the
+operator), K1 on the component-plane layout (`csrc/plane_dia.cu`, timed
+in its own layout) and, for spm2v/spm3v/spm4v, the fused one-sweep A^p x,
+K4 (`csrc/mpk.cu`).
 
 Usage:
     python -m navierstokes_tpu_torch.bench.spmv_bench --matrices 6 \
@@ -36,6 +38,7 @@ from navierstokes_tpu_torch.bench.timing import chained_op_time, rel_error
 from navierstokes_tpu_torch.fem.assembly import (
     LINEAR_TERMS,
     assemble_dia_values,
+    assemble_operator,
     build_discretization,
     cached_discretization,
 )
@@ -51,14 +54,16 @@ from navierstokes_tpu_torch.ops.plane_dia import (
     spmv_plane,
     to_planes,
 )
+from navierstokes_tpu_torch.ops.spmv import spmv_bcsr_ref, spmv_bell
+from navierstokes_tpu_torch.sparse.bell import bell_from_bcsr
 
 KERNELS = {"spmv": ("SpMV", 1), "2spmv": ("2SpMV", 2), "spm2v": ("SpM2V", 2),
            "spm3v": ("SpM3V", 3), "spm4v": ("SpM4V", 4)}
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
-# JAX variants whose layers the port does not have yet: not timed.
-NOT_PORTED = (("oracle (segment-sum)", 16, "the BCSR oracle as a bench "
-               "variant"),
-              ("block-ELL gather", 16, "sparse/bell.py"))
+# The block-format variants run at sizes where their padded layouts fit,
+# as in the JAX package.
+BLOCK_ROWS_MAX = 200_000
+BLOCK_VARIANTS = ("oracle (segment-sum)", "block-ELL gather")
 
 
 def _cgs2_hook(V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -70,19 +75,38 @@ def _cgs2_hook(V: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def block_operands(disc, data: torch.Tensor):
+    """(row_ids, indices, BCSR values, ELL indices, ELL values) of the
+    operator that `data` holds, assembled on the block pattern, or None
+    above `BLOCK_ROWS_MAX` rows."""
+    if disc.ndof > BLOCK_ROWS_MAX:
+        return None
+    dev = data.device
+    u0 = torch.zeros(disc.ndof, dtype=data.dtype, device=dev)
+    op = assemble_operator(disc, u0, 0.001, 300.0, 0.05, LINEAR_TERMS)
+    ell = bell_from_bcsr(op)
+
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.int64, device=dev)
+
+    return (idx(op.row_ids()), idx(op.indices), op.values, idx(ell.indices),
+            ell.values)
+
+
 def run_one(kernel: str, disc, data: torch.Tensor, *,
-            ortho: bool = False) -> list:
+            ortho: bool = False, blocks=None) -> list:
     """Time every variant of `kernel` on the assembled operator `data` of
-    `disc` and print one line each; returns them as dicts (name, us,
+    `disc` (and `blocks`, from `block_operands`, for the block-format
+    variants) and print one line each; returns them as dicts (name, us,
     rel_err; rel_err None for the reference)."""
     pat = disc.dia_pattern
     offsets, n, nb = pat.offsets, disc.ndof, disc.nv
     label, k = KERNELS[kernel]
     if ortho:
         label += "+ortho"
-    for name, slice_no, title in NOT_PORTED:
-        print(f"{label} {name} : not ported (ROADMAP slice {slice_no}: "
-              f"{title})", flush=True)
+    if blocks is None:
+        print(f"{label} {', '.join(BLOCK_VARIANTS)} : skipped above "
+              f"{BLOCK_ROWS_MAX:,} rows ({n:,})", flush=True)
 
     noffs = node_offsets_from_scalar(offsets)
     nbp = plane_nbp(nb)
@@ -93,7 +117,16 @@ def run_one(kernel: str, disc, data: torch.Tensor, *,
     # A^k x, layout converters (to, back) or None)
     variants = [
         ("DIA plain (K2's plain version)", dia_ops.spmv_dia_plain, offsets,
-         data, k, None),
+         data, k, None)]
+    if blocks is not None:
+        row_ids, cols, bcsr_values, ell_idx, ell_values = blocks
+        variants += [
+            (BLOCK_VARIANTS[0],
+             lambda _o, v, x: spmv_bcsr_ref(row_ids, cols, v, x), None,
+             bcsr_values, k, None),
+            (BLOCK_VARIANTS[1], lambda _o, v, x: spmv_bell(ell_idx, v, x),
+             None, ell_values, k, None)]
+    variants += [
         ("DIA K2", dia_ops.spmv_dia, offsets, data, k, None),
         ("DIA bf16 K2", dia_ops.spmv_dia, offsets, data.to(torch.bfloat16),
          k, None),
@@ -210,9 +243,10 @@ def main(argv=None) -> list:
         data = assemble_dia_values(
             disc.vol, disc.grad, disc.h, 0.001, 300.0, 0.05,
             disc.dia_elem_map, terms=LINEAR_TERMS, K=pat.K, ndof=disc.ndof)
+        blocks = block_operands(disc, data)
         for kn in kernels:
             rows += [dict(r, matrix=mid) for r in run_one(
-                kn, disc, data, ortho=args.ortho)]
+                kn, disc, data, ortho=args.ortho, blocks=blocks)]
     return rows
 
 

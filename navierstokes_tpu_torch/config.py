@@ -13,10 +13,10 @@ coarse level and the optional Chebyshev smoother; the pressure-Schur block
 preconditioner ('sch'); block-Jacobi with its Neumann boost ('bj');
 `matvec_dtype='bfloat16'` on 'tl' and 'bj'; GMRES (CGS2 through four GEMVs
 or the fused projection K3), CG and CA-GMRES with the monomial or the
-Newton basis; and deflation.  `check_supported` raises
-`NotImplementedError` only for `ell_slots`, the block-ELL layout of ROADMAP
-slice 16.  Distribution is `parallel.DistributedNavierStokesSolver` (the
-CLI's `--devices`), which narrows the options further.  It raises the
+Newton basis; and deflation.  `ell_slots` sets the block-ELL slots per
+row of the discretization (`sparse/bell.py`).  Distribution is
+`parallel.DistributedNavierStokesSolver` (the CLI's `--devices`), which
+narrows the options further.  It raises the
 JAX package's own `ValueError` for what the JAX package refuses, and a
 `ValueError` where the JAX package would silently ignore or replace an
 option: `preconditioner='ilu0'|'none'` (block-Jacobi there), `matvec_dtype`
@@ -373,10 +373,6 @@ def check_supported(cfg: NSConfig, nv: int) -> None:
     prepared from `cfg.krylov`; `cfg.stokes_krylov` only sets the Stokes
     solve's method and tolerances.  Every `residual` other than
     'operator' means the element-wise residual, as in the JAX package."""
-    if cfg.ell_slots is not None:
-        raise NotImplementedError(
-            "ell_slots (the block-ELL layout) is not ported to "
-            "navierstokes_tpu_torch yet (ROADMAP slice 16: the rest)")
     if cfg.krylov.preconditioner == "schur":
         _check_schur(cfg.krylov, cfg.jacobian)
     if cfg.jacobian not in ("exact", "reference"):

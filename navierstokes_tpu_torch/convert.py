@@ -16,6 +16,7 @@ from navierstokes_tpu_torch.config import NewtonConfig, NSConfig, SolverConfig
 from navierstokes_tpu_torch.mesh.core import Mesh
 from navierstokes_tpu_torch.solvers.coarse import CoarseSpace
 from navierstokes_tpu_torch.sparse.bcsr import BCSR4
+from navierstokes_tpu_torch.sparse.bell import BlockELL
 from navierstokes_tpu_torch.sparse.dia import ScalarDIA
 
 
@@ -64,6 +65,13 @@ def bcsr_from_jax(m, device="cpu") -> BCSR4:
     """A JAX-package `BCSR4` (host pattern, device values) -> the port's."""
     return BCSR4(indptr=np.asarray(m.indptr), indices=np.asarray(m.indices),
                  values=_tensor(m.values, device))
+
+
+def bell_from_jax(ell, device="cpu") -> BlockELL:
+    """A JAX-package `BlockELL` (host pattern, device values) -> the
+    port's."""
+    return BlockELL(indices=np.asarray(ell.indices),
+                    values=_tensor(ell.values, device), nnzb=int(ell.nnzb))
 
 
 def _coarse_space(cs) -> CoarseSpace:

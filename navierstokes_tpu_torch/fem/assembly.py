@@ -7,7 +7,9 @@ DIA layout (`dia_elem_map`), so assembling an operator is one batched
 element computation per chunk of elements and one flat scatter-add.  The
 block-CSR route (`assemble_bcsr_values`, `assemble_operator`) adds each
 element's 16 node-pair blocks into their BCSR slots (`slot_of_pair`): the
-layout of the host oracles (`solvers/precond.py`).  The residual is one
+layout of the host oracles (`solvers/precond.py`) and, through
+`ell_indices` / `slot_of_bcsr`, of the block-ELL form (`sparse/bell.py`),
+both built at first use.  The residual is one
 per-element contraction and two scatter-adds (`assemble_residual`).  Every
 scatter-add runs in a fixed order, so a run on the card repeats bit for
 bit.  `save_discretization` and `load_discretization` keep the host half
@@ -23,11 +25,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from navierstokes_tpu_torch import native
 from navierstokes_tpu_torch.fem import elements as el
 from navierstokes_tpu_torch.fem.dirichlet import DirichletBC, build_dirichlet
 from navierstokes_tpu_torch.mesh.core import Mesh
 from navierstokes_tpu_torch.ops.scatter import index_add_fixed_order
 from navierstokes_tpu_torch.sparse.bcsr import BCSR4, bcsr_pattern_from_coo
+from navierstokes_tpu_torch.sparse.bell import bell_pattern_from_bcsr
 from navierstokes_tpu_torch.sparse.dia import (
     DIAPattern,
     scaled_plan,
@@ -57,6 +61,12 @@ class Discretization:
     # cache load (the cache holds the DIA half only).
     bcsr_pattern: Optional[tuple] = dataclasses.field(default=None,
                                                       repr=False)
+    # The block-ELL pattern (ell_indices, slot_of_bcsr), built from the
+    # block-CSR pattern at first use (or loaded from a cache that holds
+    # it), with `ell_slots_asked` slots per row (None: the row degree).
+    ell_pattern: Optional[tuple] = dataclasses.field(default=None,
+                                                     repr=False)
+    ell_slots_asked: Optional[int] = None
 
     @property
     def nv(self) -> int:
@@ -72,7 +82,7 @@ class Discretization:
 
     def _bcsr(self) -> tuple:
         if self.bcsr_pattern is None:
-            self.bcsr_pattern = _block_pattern(self.mesh)
+            self.bcsr_pattern = block_pattern(self.mesh)
         return self.bcsr_pattern
 
     @property
@@ -105,21 +115,60 @@ class Discretization:
         """(nb,) slot of each diagonal block."""
         return np.flatnonzero(self.indices == self.row_ids).astype(np.int32)
 
+    def _ell(self) -> tuple:
+        if self.ell_pattern is None:
+            self.ell_pattern = bell_pattern_from_bcsr(
+                self.indptr, self.indices, self.ell_slots_asked)
+        return self.ell_pattern
+
+    @property
+    def ell_indices(self) -> np.ndarray:
+        """(nb, S) int32 block-ELL pattern (`sparse/bell.py`)."""
+        return self._ell()[0]
+
+    @property
+    def slot_of_bcsr(self) -> np.ndarray:
+        """(nnzb,) block slot -> flat block-ELL slot."""
+        return self._ell()[1]
+
+    @property
+    def ell_slots(self) -> int:
+        """S, the block-ELL slots per row."""
+        if self.ell_pattern is not None:
+            return self.ell_pattern[0].shape[1]
+        return self.ell_slots_asked or int(np.diff(self.indptr).max())
+
 
 def build_discretization(mesh: Mesh, dtype: torch.dtype,
-                         device: torch.device) -> Discretization:
+                         device: torch.device,
+                         ell_slots: Optional[int] = None) -> Discretization:
     """Element geometry in `dtype` on `device`; pattern and maps on the host.
 
     The geometry is computed in the run's dtype (float32 on the card), as
-    the JAX package does: no silent promotion."""
+    the JAX package does: no silent promotion.  `ell_slots` sets the
+    block-ELL slots per row (built at first use); one below the maximum
+    row degree raises the JAX package's ValueError here."""
     bcsr, dia_pattern, dia_elem_map = _host_pattern(mesh)
     disc = _on_device(mesh, dia_pattern, dia_elem_map, dtype, device)
     disc.bcsr_pattern = bcsr
+    if ell_slots is not None:
+        degree = int(np.diff(bcsr[0]).max())
+        if ell_slots < degree:
+            raise ValueError(f"slots={ell_slots} < max row degree {degree}")
+        disc.ell_slots_asked = ell_slots
     return disc
 
 
-def _block_pattern(mesh: Mesh) -> tuple:
-    """(indptr, indices, slot_of_pair): all (i, j) node pairs per element."""
+def block_pattern(mesh: Mesh) -> tuple:
+    """(indptr, indices, slot_of_pair): all (i, j) node pairs per element,
+    from the native host library where it is built (`native/`), else from
+    numpy; the two are equal."""
+    built = native.build_pattern_native(mesh.nv, mesh.tets)
+    return built if built is not None else block_pattern_numpy(mesh)
+
+
+def block_pattern_numpy(mesh: Mesh) -> tuple:
+    """`block_pattern` in numpy."""
     t = mesh.tets
     rows = np.repeat(t, 4, axis=1).ravel()
     cols = np.tile(t, (1, 4)).ravel()
@@ -129,7 +178,7 @@ def _block_pattern(mesh: Mesh) -> tuple:
 def _host_pattern(mesh: Mesh) -> tuple:
     """The host half of the build: the block pattern, the scalar-DIA
     pattern and the element entry -> flat DIA slot map (ne*256,) int64."""
-    bcsr = _block_pattern(mesh)
+    bcsr = block_pattern(mesh)
     indptr, indices, slot_of_pair = bcsr
     row_ids = np.repeat(np.arange(mesh.nv, dtype=np.int32), np.diff(indptr))
     if np.count_nonzero(indices == row_ids) != mesh.nv:
@@ -167,11 +216,12 @@ def _on_device(mesh: Mesh, dia_pattern: DIAPattern, dia_elem_map,
 # (the mesh, the DIA pattern and the element map: the setup cost at scale);
 # the element geometry and the BC table are computed again on load, in the
 # dtype and on the device asked for, so a solve from the cache equals one
-# from a fresh build bit for bit.  The JAX package's cache pickles its own
-# Mesh and DiaPattern classes and is not read.
+# from a fresh build bit for bit.  Where the block-ELL pattern was built
+# or its slots asked for, it is kept too (`_ELL_ARRAYS`); a cache without
+# it loads, and builds it at first use.  The JAX package's cache pickles
+# its own Mesh and DiaPattern classes and is not read.
 CACHE_FORMAT = 1
-_CACHE_ARRAYS = ("coords", "tets", "node_tags", "dia_offsets", "dia_flat_map",
-                 "dia_elem_map")
+_ELL_ARRAYS = ("ell_indices", "slot_of_bcsr")
 
 
 def is_discretization_cache(cache_dir: str) -> bool:
@@ -197,8 +247,10 @@ def save_discretization(disc: Discretization, out_dir: str) -> None:
         "dia_elem_map": emap.cpu().numpy().astype(
             np.int32 if pat.K * pat.ndof < 2**31 else np.int64),
     }
-    for name in _CACHE_ARRAYS:
-        np.save(os.path.join(out_dir, f"{name}.npy"), arrays[name])
+    if disc.ell_pattern is not None or disc.ell_slots_asked is not None:
+        arrays.update(zip(_ELL_ARRAYS, disc._ell()))
+    for name, arr in arrays.items():
+        np.save(os.path.join(out_dir, f"{name}.npy"), arr)
     # written last: a cache cut short is not taken for a whole one
     np.save(os.path.join(out_dir, "format.npy"),
             np.asarray([CACHE_FORMAT, pat.ndof, pat.nnz], dtype=np.int64))
@@ -247,7 +299,10 @@ def load_discretization(cache_dir: str, dtype: torch.dtype,
     if ndof != mesh.ndof:
         raise ValueError(f"{cache_dir}: pattern of {ndof} rows for a mesh "
                          f"of {mesh.ndof}")
-    return _on_device(mesh, pattern, load("dia_elem_map"), dtype, device)
+    disc = _on_device(mesh, pattern, load("dia_elem_map"), dtype, device)
+    if os.path.exists(os.path.join(cache_dir, "ell_indices.npy")):
+        disc.ell_pattern = tuple(load(name) for name in _ELL_ARRAYS)
+    return disc
 
 
 def local_fields(tets: torch.Tensor, u: torch.Tensor) -> tuple:

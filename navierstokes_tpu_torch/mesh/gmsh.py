@@ -1,5 +1,4 @@
-"""Gmsh 2.2 ASCII `.msh` files: the JAX package's pure-Python reader and
-its writer.
+"""Gmsh 2.2 ASCII `.msh` files: the JAX package's reader and writer.
 
 The reader keeps the semantics of the reference's `read_mesh`
 (`src/solve_newton.c:91-197`):
@@ -12,21 +11,30 @@ The reader keeps the semantics of the reference's `read_mesh`
   node gets that tag, the last facet to name a node winning; every other
   type is skipped.
 
-The JAX package reads with a native C++ parser where its library is built
-and falls back to the same Python semantics; the native parser is not part
-of this package.
+`read_gmsh` parses with the native host library (`native/`) where it is
+built, else with `read_gmsh_py`, the same semantics in Python.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from navierstokes_tpu_torch import native
 from navierstokes_tpu_torch.mesh.core import COLLECTED_TAGS, Mesh
 
 
 def read_gmsh(path: str) -> Mesh:
     """The mesh in the Gmsh 2.2 ASCII file `path`, nodes in file order (no
     reordering)."""
+    parsed = native.parse_gmsh_native(path)
+    if parsed is None:
+        return read_gmsh_py(path)
+    coords, tets, tags = parsed
+    return Mesh(coords=coords, tets=tets, node_tags=tags)
+
+
+def read_gmsh_py(path: str) -> Mesh:
+    """`read_gmsh` in Python."""
     with open(path, "r") as f:
         lines = f.read().split("\n")
 

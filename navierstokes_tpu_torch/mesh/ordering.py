@@ -5,8 +5,9 @@ The DIA kernels take a band of at most 128 node offsets (K1) or 256 scalar
 diagonals (K2); a mesh numbered without locality (a Gmsh file) can exceed
 it, and RCM narrows it.  The generator meshes come numbered near-optimally
 already.  As in the JAX package, nothing on the single-device path calls
-these (`run.py --msh` reads without reordering); the JAX package's native
-RCM is not part of this package.
+these (`run.py --msh` reads without reordering).  `rcm_ordering` runs the
+native host library's RCM (`native/`) where it is built, else
+`rcm_ordering_py`; the two give the same permutation.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from collections import deque
 
 import numpy as np
 
+from navierstokes_tpu_torch import native
 from navierstokes_tpu_torch.mesh.core import Mesh
 
 
@@ -34,6 +36,15 @@ def rcm_ordering(mesh: Mesh) -> np.ndarray:
     """Reverse Cuthill-McKee permutation, perm[new] = old node index: a
     breadth-first walk of each component from a node of least degree,
     neighbours by increasing degree (stable), then reversed."""
+    built = native.build_pattern_native(mesh.nv, mesh.tets)
+    if built is None:
+        return rcm_ordering_py(mesh)
+    indptr, indices, _ = built
+    return native.rcm_native(mesh.nv, indptr, indices)
+
+
+def rcm_ordering_py(mesh: Mesh) -> np.ndarray:
+    """`rcm_ordering` in numpy and Python."""
     rows, cols = mesh.node_adjacency()
     nv = mesh.nv
     ptr, adj = _adjacency_lists(nv, rows, cols)

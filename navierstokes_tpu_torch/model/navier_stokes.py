@@ -313,7 +313,8 @@ class NavierStokesSolver:
         self.dtype = self.cfg.torch_dtype
         self._sc = scalar_type(self.dtype)
         self.disc = disc if disc is not None else build_discretization(
-            mesh, dtype=self.dtype, device=self.device)
+            mesh, dtype=self.dtype, device=self.device,
+            ell_slots=self.cfg.ell_slots)
         nb = mesh.nv
         kr = self.cfg.krylov
         self._coarse_space = build_aggregates(nb, kr.coarse_agg)

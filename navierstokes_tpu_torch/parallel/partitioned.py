@@ -28,9 +28,17 @@ and the fixed-order sums of `solvers/vectors.py` its `all_gather` and
   scatter of `ops/scatter.py`, in a fixed order), then adds its overflow
   columns into its right neighbour's first rows.
 
-The JAX package's block-ELL forms (`RowPartition`, `partitioned_spmv`,
-`partitioned_spmv_power`) belong with `sparse/bell.py`, ROADMAP slice 16.
-Its pretiled per-shard layout is a TPU layout and is not carried.
+- `RowPartition`, `partitioned_spmv`, `partitioned_spmv_power`: the
+  block-ELL operator (`sparse/bell.py`) in shards of L block rows, the pad
+  rows identity blocks.  Columns are kept as deltas col - row in [-H, H],
+  so a shard gathers its ghost rows with the same arithmetic as its own
+  from its (L + 2H, 4) window; the power form exchanges k*H rows of x and
+  (k-1)*H of the operator once, then sweeps k times over a shrinking
+  ghost region.  Plain PyTorch, as in the JAX package (no Pallas kernel
+  reaches the block-ELL product); no solver path calls them.
+
+The JAX package's pretiled per-shard layout is a TPU layout and is not
+carried.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from navierstokes_tpu_torch.fem.assembly import assemble_dia_values
 from navierstokes_tpu_torch.ops import dia as dia_ops
 from navierstokes_tpu_torch.ops.plane_dia import ghost_width, spmv_planes
+from navierstokes_tpu_torch.ops.spmv import bell_rows
 from navierstokes_tpu_torch.solvers.vectors import Shards
 
 
@@ -72,35 +81,44 @@ def plane_shard_nodes(nb: int, node_offsets: tuple, P: int, agg: int,
     return -(-need // m) * m
 
 
-def split_rows(x: torch.Tensor, L: int, devices) -> Shards:
-    """A global vector (..., n) -> P row blocks of L along the last axis,
-    zero-padded to P * L, shard s on devices[s]."""
+def split_rows(x: torch.Tensor, L: int, devices, dim: int = -1) -> Shards:
+    """A global array -> P row blocks of L along axis `dim` (the last by
+    default), zero-padded to P * L, shard s on devices[s]."""
     P = len(devices)
-    pad = P * L - x.shape[-1]
-    xp = torch.nn.functional.pad(x, (0, pad)) if pad else x
-    return Shards(xp[..., s * L:(s + 1) * L].to(dev).contiguous()
+    pad = P * L - x.shape[dim]
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim=dim)
+    return Shards(x.narrow(dim, s * L, L).to(dev).contiguous()
                   for s, dev in enumerate(devices))
 
 
-def join_rows(v: Shards, n: int, device) -> torch.Tensor:
-    """The row blocks back into one vector of n rows on `device`."""
-    return torch.cat([a.to(device) for a in v.parts], dim=-1)[..., :n]
+def join_rows(v: Shards, n: int, device, dim: int = -1) -> torch.Tensor:
+    """The row blocks back into one array of n rows along `dim` on
+    `device`."""
+    return torch.cat([a.to(device) for a in v.parts], dim=dim).narrow(
+        dim, 0, n)
 
 
-def exchange(parts, depth: int) -> list:
-    """Each shard's rows with `depth` ghost rows on either side (last axis)
-    from its neighbours, zeros beyond the two ends: the JAX package's
-    `_exchange`.  depth <= L."""
+def exchange(parts, depth: int, dim: int = -1) -> list:
+    """Each shard's rows with `depth` ghost rows on either side (along
+    `dim`, the last axis by default) from its neighbours, zeros beyond the
+    two ends: the JAX package's `_exchange`.  depth <= L."""
     if depth == 0:
         return list(parts)
     P = len(parts)
     out = []
     for s, a in enumerate(parts):
-        zero = a.new_zeros(a.shape[:-1] + (depth,))
-        left = parts[s - 1][..., -depth:].to(a.device) if s else zero
-        right = parts[s + 1][..., :depth].to(a.device) if s < P - 1 \
-            else zero
-        out.append(torch.cat([left, a, right], dim=-1))
+        shape = list(a.shape)
+        shape[dim] = depth
+        zero = a.new_zeros(shape)
+        n = a.shape[dim]
+        left = parts[s - 1].narrow(dim, n - depth, depth).to(a.device) \
+            if s else zero
+        right = parts[s + 1].narrow(dim, 0, depth).to(a.device) \
+            if s < P - 1 else zero
+        out.append(torch.cat([left, a, right], dim=dim))
     return out
 
 
@@ -180,6 +198,138 @@ def partitioned_spmv_dia_power(offsets: tuple, data: Shards, x: Shards,
             nxt = torch.zeros_like(cur)
             nxt[(s + 1) * h:ext - (s + 1) * h] = y[s * h:inner - s * h]
             cur = nxt
+            if return_all:
+                own.append(cur[D:D + L])
+        out.append(torch.stack(own, dim=-1) if return_all else cur[D:D + L])
+    return Shards(out)
+
+
+# ---------------------------------------------------------------------------
+# Block-ELL
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RowPartition:
+    """Static block-ELL partition layout (host side), the JAX package's
+    field for field."""
+
+    n_devices: int
+    rows_per_dev: int            # L (block rows per shard)
+    halo: int                    # H (block rows exchanged per side)
+    nb: int                      # true block rows
+    nb_pad: int                  # n_devices * L
+    slots: int
+    delta_indices: np.ndarray    # (nb_pad, S) int32: col - row in [-H, H]
+    pad_diag_slot: int = 0       # slot holding identity in padding rows
+
+
+def build_row_partition(ell_indices: np.ndarray, n_devices: int,
+                        halo: int = None) -> RowPartition:
+    """Cut a block-ELL pattern into contiguous shards of L block rows.
+
+    Requires the band max |col - row| <= halo <= L (a ValueError names the
+    one that fails); padding rows reference themselves (delta 0)."""
+    nb, slots = ell_indices.shape
+    L = -(-nb // n_devices)
+    nb_pad = L * n_devices
+    delta = ell_indices.astype(np.int64) - np.arange(nb, dtype=np.int64)[
+        :, None]
+    bw = int(np.abs(delta).max()) if nb else 0
+    if halo is None:
+        halo = bw
+    if bw > halo:
+        raise ValueError(f"block bandwidth {bw} exceeds halo {halo}")
+    if halo > L:
+        raise ValueError(
+            f"halo {halo} exceeds rows-per-device {L}: too many devices for "
+            "this mesh bandwidth (refine the mesh or reduce n_devices)")
+    delta_pad = np.zeros((nb_pad, slots), dtype=np.int32)
+    delta_pad[:nb] = delta
+    return RowPartition(n_devices=n_devices, rows_per_dev=L, halo=halo,
+                        nb=nb, nb_pad=nb_pad, slots=slots,
+                        delta_indices=delta_pad)
+
+
+def pad_ell_values(part: RowPartition, values: torch.Tensor) -> torch.Tensor:
+    """(nb, S, 4, 4) -> (nb_pad, S, 4, 4) with identity blocks in the pad
+    rows' `pad_diag_slot`."""
+    n_pad = part.nb_pad - part.nb
+    if n_pad == 0:
+        return values
+    pad = values.new_zeros((n_pad, part.slots, 4, 4))
+    pad[:, part.pad_diag_slot] = torch.eye(4, dtype=values.dtype,
+                                           device=values.device)
+    return torch.cat([values, pad])
+
+
+def pad_vector(part: RowPartition, x: torch.Tensor) -> torch.Tensor:
+    """(4 nb,) -> (4 nb_pad,), zeros in the pad rows."""
+    return torch.nn.functional.pad(x, (0, 4 * (part.nb_pad - part.nb)))
+
+
+def unpad_vector(part: RowPartition, x: torch.Tensor) -> torch.Tensor:
+    return x[:4 * part.nb]
+
+
+def _bell_window(vals: torch.Tensor, window: torch.Tensor,
+                 gather_at: torch.Tensor) -> torch.Tensor:
+    """sum_s vals[q, s] @ window[gather_at[q, s]] -> (rows, 4)."""
+    return bell_rows(vals, window[gather_at][..., None])[..., 0]
+
+
+def partitioned_spmv(part: RowPartition, delta: Shards, values: Shards,
+                     x: Shards) -> Shards:
+    """y = A x on block-ELL shards with one exchange of H block rows per
+    side: each shard gathers from its (L + 2H, 4) window at q + delta + H.
+    Per shard: delta (L, S) of `part.delta_indices`, values (L, S, 4, 4)
+    of `pad_ell_values`, x (L, 4) of `pad_vector`, each cut by
+    `split_rows(..., dim=0)`; y (L, 4)."""
+    H, L = part.halo, part.rows_per_dev
+    out = []
+    for d, v, xw in zip(delta.parts, values.parts,
+                        exchange(x.parts, H, dim=0)):
+        q = torch.arange(L, device=xw.device)[:, None]
+        out.append(_bell_window(v, xw, q + d + H))
+    return Shards(out)
+
+
+def partitioned_spmv_power(part: RowPartition, delta: Shards, values: Shards,
+                           x: Shards, k: int, return_all: bool = False,
+                           shifts: tuple = None) -> Shards:
+    """Communication-avoiding A^k x on block-ELL shards: ONE k*H-deep
+    exchange of x and one (k-1)*H-deep exchange of the operator rows and
+    their deltas, then k local sweeps.  Sweep s leaves valid rows at window
+    offsets [(s+1)H, L + 2D - (s+1)H) (D = kH), so the own rows [D, D + L)
+    are valid after every sweep: `return_all` gives (L, 4, k) per shard.
+    `shifts` (k floats) gives the Newton-basis products
+    prod_j (A - shifts[j] I) x.  Requires k * H <= L."""
+    H, L = part.halo, part.rows_per_dev
+    D = k * H
+    if D > L:
+        raise ValueError(f"k*halo = {D} exceeds rows-per-device {L}")
+    if shifts is None and k == 1 and not return_all:
+        return partitioned_spmv(part, delta, values, x)
+    ghost = D - H            # operator rows needed beyond the shard's own
+    ext = L + 2 * D
+    out = []
+    for cur, d_ext, v_ext in zip(exchange(x.parts, D, dim=0),
+                                 exchange(delta.parts, ghost, dim=0),
+                                 exchange(values.parts, ghost, dim=0)):
+        dev = cur.device
+        # the row at window offset p in [H, ext - H) is operator row p - H
+        # of the extended arrays and gathers at p + delta
+        q = torch.arange(ext - 2 * H, device=dev)[:, None]
+        gather_at = torch.clamp(q + H + d_ext, 0, ext - 1)
+        off = torch.arange(ext, device=dev)[:, None]
+        own = []
+        for s in range(k):
+            y = _bell_window(v_ext, cur, gather_at)
+            if shifts is not None:
+                y = y - shifts[s] * cur[H:ext - H]
+            y = torch.nn.functional.pad(y, (0, 0, H, H))
+            valid = (off >= (s + 1) * H) & (off < ext - (s + 1) * H)
+            cur = torch.where(valid, y, torch.zeros_like(y))
             if return_all:
                 own.append(cur[D:D + L])
         out.append(torch.stack(own, dim=-1) if return_all else cur[D:D + L])

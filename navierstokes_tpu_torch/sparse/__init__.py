@@ -4,6 +4,12 @@ from navierstokes_tpu_torch.sparse.bcsr import (
     bcsr_matvec,
     bcsr_pattern_from_coo,
 )
+from navierstokes_tpu_torch.sparse.bell import (
+    BlockELL,
+    bell_from_bcsr,
+    bell_pattern_from_bcsr,
+    bell_values_from_bcsr_values,
+)
 from navierstokes_tpu_torch.sparse.dia import (
     DIAPattern,
     ScalarDIA,
@@ -19,6 +25,10 @@ __all__ = [
     "bcsr_from_coo",
     "bcsr_matvec",
     "bcsr_pattern_from_coo",
+    "BlockELL",
+    "bell_from_bcsr",
+    "bell_pattern_from_bcsr",
+    "bell_values_from_bcsr_values",
     "DIAPattern",
     "ScalarDIA",
     "block_diag_to_dia",

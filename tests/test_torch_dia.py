@@ -20,6 +20,8 @@ from navierstokes_tpu.mesh import box as jbox
 from navierstokes_tpu.ops import spmv as jspmv
 from navierstokes_tpu.ops.pallas_dia import pretile_dia, spmv_dia_pallas
 from navierstokes_tpu.solvers import coarse as jco
+from navierstokes_tpu.sparse import bcsr as jbcsr
+from navierstokes_tpu.sparse import bell as jbell
 from navierstokes_tpu.sparse import dia as jdia
 from navierstokes_tpu_torch import convert
 from navierstokes_tpu_torch.ops import cuda_lib
@@ -107,8 +109,8 @@ def test_plain_float32_accumulates_in_float32():
 
 
 def test_make_spmv_variants_match_jax(jdisc):
-    """'oracle', 'dia', 'pallas_dia' and 'dia_bf16' give the JAX package's
-    answers on the assembled operator; 'ell' names its slice."""
+    """'oracle', 'ell', 'dia', 'pallas_dia' and 'dia_bf16' give the JAX
+    package's answers on the assembled operator."""
     jd = jdisc
     pat = jd.dia_pattern
     data = np.asarray(jas.assemble_dia_values(
@@ -145,8 +147,16 @@ def test_make_spmv_variants_match_jax(jdisc):
     assert _rel(y16.numpy(), y16_j) <= 1e-14
     assert 1e-5 < _rel(y16.numpy(), y_ref) <= 2e-2     # the bf16 rounding
 
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        tspmv.make_spmv("ell")
+    # the block-ELL form of the same blocks: the JAX package's 'ell' and
+    # the oracle at rel 1e-13 (f64)
+    j_ell = jbell.bell_from_bcsr(jbcsr.BCSR4(jd.indptr, jd.indices,
+                                             jnp.asarray(blocks)))
+    t_ell = convert.bell_from_jax(j_ell)
+    np.testing.assert_array_equal(t_ell.indices, j_ell.indices)
+    y_e = tspmv.make_spmv("ell", ell=t_ell)(torch.as_tensor(x))
+    y_je = np.asarray(jspmv.make_spmv("ell", ell=j_ell)(jnp.asarray(x)))
+    assert _rel(y_e.numpy(), y_je) <= 1e-13
+    assert _rel(y_e.numpy(), y_o.numpy()) <= 1e-13
     with pytest.raises(ValueError, match="unknown"):
         tspmv.make_spmv("csr")
 

@@ -289,5 +289,26 @@ def test_option_errors(cfg_kw, krylov_kw, match):
 
 
 def test_ell_slots_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 16"):
-        resolve_supported(NSConfig(ell_slots=8), 1000)
+    """`ell_slots` resolves as set, and a solve on a channel with it runs
+    and equals one without, bit for bit (the block-ELL pattern is built
+    at first use only, with the slots asked for); slots below the row
+    degree raise the JAX package's ValueError."""
+    assert resolve_supported(NSConfig(ell_slots=8), 1000).ell_slots == 8
+    mesh = convert.mesh_from_jax(j_channel(4, 2, 2))
+    kr = SolverConfig(rtol=1e-10, atol=1e-12, maxiter=400)
+    cfg = NSConfig(dt=0.01, reynolds=100.0, delta=0.1, dtype="float64",
+                   krylov=kr, stokes_krylov=kr)
+    runs = []
+    for slots in (None, 30):
+        s = NavierStokesSolver(mesh, dataclasses.replace(cfg,
+                                                         ell_slots=slots),
+                               device="cpu")
+        assert s.disc.ell_pattern is None
+        runs.append(s.run(1, u0=s.stokes_init(), monitor=False))
+        degree = int(np.diff(s.disc.indptr).max())
+        assert s.disc.ell_slots == (slots or degree)
+        assert s.disc.ell_indices.shape == (mesh.nv, slots or degree)
+    assert torch.equal(runs[0], runs[1])
+    with pytest.raises(ValueError, match="max row degree"):
+        NavierStokesSolver(mesh, dataclasses.replace(cfg, ell_slots=8),
+                           device="cpu")

@@ -207,11 +207,11 @@ _LINE = re.compile(r"^(SpMV|SpM2V|SpM3V|SpM4V) (.+?) : +([0-9.]+) us \| "
 
 def test_bench_main_on_the_cpu(capsys):
     """`bench.spmv_bench.main` at matrix 1, float64, on the CPU: the JAX
-    bench's line format, every variant (K2, K1 on the plane layout, the
-    fused K4 for spm2v/spm3v/spm4v) within rel 1e-12 of the chained plain
-    reference, K2's bf16 form within the bf16 rounding of the operator
-    (rel 2e-2, the JAX package's bar for its bf16 operator), the unported
-    JAX variants named with their slice."""
+    bench's line format, every variant (the BCSR oracle and the block-ELL
+    gather, K2, K1 on the plane layout, the fused K4 for spm2v/spm3v/spm4v)
+    within rel 1e-12 of the chained plain reference, K2's bf16 form within
+    the bf16 rounding of the operator (rel 2e-2, the JAX package's bar for
+    its bf16 operator)."""
     mpk_fused.reset_counters()
     rows = spmv_bench.main(["--matrices", "1", "--kernel",
                             "spmv,spm2v,spm3v,spm4v", "--dtype", "float64",
@@ -219,8 +219,11 @@ def test_bench_main_on_the_cpu(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("Matrix loaded: 252 rows, ")
     timed = [ln for ln in out if _LINE.match(ln)]
-    assert len(timed) == len(rows) == 4 + 3 * 5
-    assert sum("not ported (ROADMAP slice" in ln for ln in out) == 2 * 4
+    assert len(timed) == len(rows) == 4 * 6 + 3
+    assert not any("not ported" in ln or "skipped" in ln for ln in out)
+    for name in spmv_bench.BLOCK_VARIANTS:
+        assert [r["kernel"] for r in rows if r["name"] == name] == [
+            "spmv", "spm2v", "spm3v", "spm4v"]
     fused = [r for r in rows if "FUSED K4" in r["name"]]
     assert [r["kernel"] for r in fused] == ["spm2v", "spm3v", "spm4v"]
     assert sum(r["name"] == "DIA bf16 K2" for r in rows) == 4
@@ -235,15 +238,30 @@ def test_bench_main_on_the_cpu(capsys):
             assert r["rel_err"] <= 1e-12
 
 
+def test_bench_block_variants_skip_above_the_cut(monkeypatch, capsys):
+    """Above `BLOCK_ROWS_MAX` rows (lowered here to 100 for matrix 1's
+    252) the oracle and block-ELL variants are not timed, and one line per
+    kernel says so."""
+    monkeypatch.setattr(spmv_bench, "BLOCK_ROWS_MAX", 100)
+    rows = spmv_bench.main(["--matrices", "1", "--kernel", "spmv",
+                            "--dtype", "float64", "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[1] == ("SpMV oracle (segment-sum), block-ELL gather : "
+                      "skipped above 100 rows (252)")
+    assert len(rows) == 4
+    assert not {r["name"] for r in rows} & set(spmv_bench.BLOCK_VARIANTS)
+
+
 def test_bench_ortho_hook_on_the_cpu():
-    """2SpMV with the CGS2 hook between the chained applies, on both
-    layouts: the plane variant projects against the basis in its own
-    layout and maps back to the reference at rel 1e-12 (K2's bf16 form
-    within the bf16 rounding of the operator)."""
+    """2SpMV with the CGS2 hook between the chained applies, on every
+    layout (the block-format variants included): the plane variant
+    projects against the basis in its own layout and maps back to the
+    reference at rel 1e-12 (K2's bf16 form within the bf16 rounding of
+    the operator)."""
     rows = spmv_bench.main(["--matrices", "1", "--kernel", "2spmv",
                             "--ortho", "--dtype", "float64", "--device",
                             "cpu"])
-    assert len(rows) == 4 and rows[0]["rel_err"] is None
+    assert len(rows) == 6 and rows[0]["rel_err"] is None
     for r in rows[1:]:
         bar = 2e-2 if r["name"] == "DIA bf16 K2" else 1e-12
         assert r["rel_err"] <= bar, r
