@@ -30,10 +30,12 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. K1 on the Schur tier's forms: the real S_hat (1x1 on its 65 node
      offsets, the sumset of the 15) of matrices 6 and 8, both routes,
      float32 and float64, equal bit for bit between routes and within the
-     bar of the plain version, also on random data nonzero outside the
-     matrix; and matrix 8's 4x4, 3x3 F, 1x3 A_pu and 3x1 A_up by the route
-     the wrapper chooses; each timed flushed and L2-warm beside cuSPARSE
-     and the bound;
+     bar of the plain version; and matrix 8's 4x4, 3x3 F, 1x3 A_pu and
+     3x1 A_up by the route the wrapper chooses; each timed flushed and
+     L2-warm beside cuSPARSE and the bound, with its tile plan (tile, node
+     offsets per stage G, x window clusters, stages, shared bytes); then
+     S_hat, 1x3 and 3x3 on random data nonzero outside the matrix, both
+     routes equal bit for bit;
   6. K3 against its plain version at the matrix-6 Krylov shapes (V of
      31 x 117,760 in float32, the plane layout, and 31 x 117,500 in
      float64) and at matrix 8's n = 511,024, where V[:k+1] does not fit in
@@ -55,6 +57,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      'tlp' flagship), the kernel launch counters reset before and read
      after, with the physics checks of the repo (BC values exact, finite
      state, downstream flow, .dat header);
+  8b. the same with the caller's TF32 flags on: the solver turns TF32 off
+     for its own work only, so Stokes and every step take phase 8's
+     Newton and GMRES counts and end in its state bit for bit, and the
+     flags read True after;
   9. the same with `--cgs2 pallas` (K3 in every GMRES iteration): GMRES per
      step within 0.8x-1.25x of phase 8's, K3 and K1 counted;
  10. scalar two-level path: `run.main --spmv pallas` at matrix 6 in float32
@@ -76,16 +82,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps uninterrupted, whose solution_step0004.dat the resumed run must
      repeat bit for bit;
  13. the Schur tier: `run.main --matrix-id 8` at the float32 defaults
-     ('auto' resolves to 'sch'), Stokes + 3 steps; K1 for every apply, no
-     plain call, Newton <= 3, mean GMRES per step within 0.5x-2x of the
-     JAX package's 54.5, K1 launches per form and route in one more step,
-     peak device memory, the physics checks; then each K1 form of the
-     run's own prep timed;
+     ('auto' resolves to 'sch'), Stokes + 3 steps; K1 for every apply, each
+     form on the tiled route, no plain call, Newton <= 3, mean GMRES per
+     step within 0.5x-2x of the JAX package's 54.5 and equal to the port's
+     own 46.0, K1 launches per form and route in one more step, peak
+     device memory, the physics checks; then each K1 form of the run's own
+     prep timed;
  14. the same with `--cgs2 pallas`, Stokes + 2 steps: K3 where V[:k+1]
      overflows shared memory, one launch per GMRES iteration, GMRES per
      step within 0.8x-1.25x of phase 13's;
- 15. and 16. matrix 9 (Stokes + 2 steps, band around 72.2) and matrix 10
-     (Stokes + 1 step, band around 89.5), as phase 13;
+ 15. and 16. matrix 9 (Stokes + 2 steps, band around 72.2, the port's
+     55.0) and matrix 10 (Stokes + 1 step, band around 89.5, the port's
+     66.0), as phase 13, each form of the run's prep timed on both routes
+     in turns;
  17. small-input reference: the golden 5-step trajectory of
      `tests/data_golden_trajectory.py` (reference-derived C) in float64, in
      flagship mode with cgs2='xla' and with cgs2='pallas' (K3 in float64),
@@ -96,7 +105,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      variant within rel 1e-5 of the reference, K4 counted;
  19. the bench tools of the Schur tier at matrix 8: `transient_bench` (the
      product default, 3 steps; its TRANSIENT line, finite numbers) and
-     `gmres_decomp` (every part of the 'sch' prep, the four GEMVs and K3);
+     `gmres_decomp --preconditioner auto` (every part of the 'sch' prep,
+     the four GEMVs and K3; the tool's default is the JAX tool's 'tl');
  20. the discretization cache: `transient_bench --disc-cache` at matrix 8
      twice, the second run loading the cache, with equal counts and an
      equal final state bit for bit, both setup times printed;
@@ -608,8 +618,7 @@ def k1_phase(dev, mesh, pat, data64, flush):
             gfs = 2 * nnz / (t["k_flush"] * 1e-3) / 1e9
             lib_txt = (f" | cuSPARSE CSR {t['lib_flush']:.4f} ms flushed, "
                        f"{t['lib']:.4f} ms L2-warm")
-            print(f"{label}: route {chosen} (tile {plan.tn}, {plan.stages} "
-                  f"stages, {plan.smem_bytes} B shared); rel "
+            print(f"{label}: route {chosen} ({pd.plan_text(plan)} shared); rel "
                   + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
                   + f", routes equal bit for bit: {same}; max_abs "
                   f"{abs_err:.3e} | {routes_line(t)} | {chosen}: "
@@ -856,9 +865,8 @@ def route_sweep_phase(dev, pat, flush):
             if not same:
                 raise AssertionError(f"{label}: the routes differ")
             t = route_turns(run_route, flush, reps=9)
-            print(f"{label}: tile {plan.tn}, {plan.n_tiles} tiles on "
-                  f"{plan.grid} blocks, {plan.stages} stages, {plan.windows} "
-                  f"window buffer(s); rel {errs['tiled'][0]:.3e}, routes "
+            print(f"{label}: {pd.plan_text(plan)}, {plan.windows} window "
+                  f"buffer(s); rel {errs['tiled'][0]:.3e}, routes "
                   f"equal bit for bit | {routes_line(t)}", flush=True)
 
 
@@ -935,9 +943,8 @@ def k1_form(label: str, offs, data, n_in: int, nb: int, flush, rng,
     t["bound"], t["bound_by"] = bound_ms(
         data.element_size() * (data.numel() + (n_in + n_out) * nbp),
         2 * n_out * n_in * in_range, dtype)
-    how = (f"tile {plan.tn}, {plan.n_tiles} tiles on {plan.grid} blocks, "
-           f"{plan.stages} stages, window {plan.window}, {plan.smem_bytes} B "
-           "shared" if plan else "the tiled plan does not fit")
+    how = (f"{pd.plan_text(plan)} shared" if plan
+           else "the tiled plan does not fit")
     times = routes_line(t) if routes else (
         f"kernel {t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm")
     print(f"{label} ({len(offs)} offsets {min(offs)}..{max(offs)}): route "
@@ -968,7 +975,8 @@ def k1_schur_phase(dev, flush) -> dict:
               f"S_hat offsets {len(prep.s_offsets)}", flush=True)
         if len(prep.s_offsets) != 65:
             raise AssertionError(f"S_hat has {len(prep.s_offsets)} offsets")
-        for form, (offs, planes, n_in) in schur_forms(prep).items():
+        forms = schur_forms(prep)
+        for form, (offs, planes, n_in) in forms.items():
             for dtype in BARS:
                 if form != "1x1 S_hat" and (mid != 8
                                             or dtype != torch.float32):
@@ -977,28 +985,35 @@ def k1_schur_phase(dev, flush) -> dict:
                 summary[(mid, form, dtype)] = k1_form(
                     f"K1 m{mid} {form} {str(dtype)[6:]}", offs, data, n_in,
                     nb, flush, rng, routes=form == "1x1 S_hat")
-        for dtype, bar in BARS.items():
-            offs = prep.s_offsets
-            data = torch.as_tensor(
-                rng.standard_normal(tuple(prep.s_planes.shape)), dtype=dtype,
-                device=dev)
-            x = torch.as_tensor(rng.standard_normal(nbp), dtype=dtype,
-                                device=dev)
-            ref = pd.spmv_planes_plain(offs, data, x, n_in=1, nb=nb)
-            errs, same = check_routes(
-                f"K1 m{mid} S_hat random data {dtype}",
-                lambda route: pd.spmv_planes_cuda(offs, data, x, n_in=1,
-                                                  nb=nb, route=route),
-                ref, bar, pad=lambda y: y.reshape(-1, nbp)[:, nb:])
-            if not same:
-                raise AssertionError("S_hat random data: the routes differ")
-            print(f"K1 m{mid} S_hat {str(dtype)[6:]}, random data nonzero "
-                  "outside the matrix and in the padding rows: rel "
-                  + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
-                  + ", routes equal bit for bit", flush=True)
-        del prep
+        # Data nonzero where i + D leaves the matrix and in the padding
+        # rows: each segment of the clustered x window must hold exact
+        # zeros there, as the rows route's mask does.
+        for form in ("1x1 S_hat", "1x3 A_pu", "3x3 F"):
+            offs, planes, n_in = forms[form]
+            for dtype, bar in BARS.items():
+                data = torch.as_tensor(
+                    rng.standard_normal(tuple(planes.shape)), dtype=dtype,
+                    device=dev)
+                x = torch.as_tensor(rng.standard_normal(n_in * nbp),
+                                    dtype=dtype, device=dev)
+                ref = pd.spmv_planes_plain(offs, data, x, n_in=n_in, nb=nb)
+                errs, same = check_routes(
+                    f"K1 m{mid} {form} random data {dtype}",
+                    lambda route: pd.spmv_planes_cuda(
+                        offs, data, x, n_in=n_in, nb=nb, route=route),
+                    ref, bar, pad=lambda y: y.reshape(-1, nbp)[:, nb:])
+                if not same:
+                    raise AssertionError(f"{form} random data: the routes "
+                                         "differ")
+                print(f"K1 m{mid} {form} {str(dtype)[6:]}, random data "
+                      "nonzero outside the matrix and in the padding rows: "
+                      "rel "
+                      + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
+                      + ", routes equal bit for bit", flush=True)
+        del prep, forms
     print("K1 Schur forms: padding rows exactly 0, every call repeated bit "
-          "for bit, S_hat's two routes equal bit for bit")
+          "for bit, the two routes equal bit for bit (S_hat on its own "
+          "data; S_hat, 1x3 and 3x3 on random data)")
     return summary
 
 
@@ -1303,11 +1318,13 @@ def mean_lin(out) -> float:
     return sum(lin) / len(lin)
 
 
+PLANE_ARGV = ["--matrix-id", "6", "--re", "300", "--dt", "1e-3", "--delta",
+              "0.05", "--dtype", "float32"]
+
+
 def plane_path_phase():
     out, counts = drive("plane path: run.main --matrix-id 6, float32, "
-                        "Stokes + 5 steps ('tlp')",
-                        ["--matrix-id", "6", "--re", "300", "--dt", "1e-3",
-                         "--delta", "0.05", "--dtype", "float32"], 5)
+                        "Stokes + 5 steps ('tlp')", PLANE_ARGV, 5)
     lin = mean_lin(out)
     print(f"mean GMRES iterations per step {lin:.1f} (JAX package on TPU "
           f"v5e: {JAX_LIN_PER_STEP}, BENCH_r05, for comparison only)")
@@ -1319,7 +1336,40 @@ def plane_path_phase():
     if counts["K1 tiled"] <= 0 or counts["K1 rows"] or counts["K3"] \
             or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
-    return counts["K1"], lin
+    return counts["K1"], lin, out
+
+
+def tf32_flags() -> tuple:
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def tf32_phase(off) -> None:
+    """Phase 8's 'tlp' run with the caller's TF32 on: the solver turns it
+    off for its own work only, so Stokes and every step take the same
+    GMRES iterations and end in the same state bit for bit, and the
+    caller's two flags read True after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out, _ = drive("plane path with the caller's TF32 on: run.main "
+                       "--matrix-id 6, float32, Stokes + 5 steps ('tlp')",
+                       PLANE_ARGV, 5)
+        after = tf32_flags()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    def counts(o):
+        return [o.solver.stokes_result.iters] + [
+            (st.iters, st.lin_iters) for _, st, _ in o.solver.history]
+    same = torch.equal(out.u, off.u)
+    print(f"TF32 on: Stokes GMRES and (Newton, GMRES) per step "
+          f"{counts(out)}; TF32 off: {counts(off)}; states equal bit for "
+          f"bit: {same}; the caller's flags after the run: {after}")
+    if counts(out) != counts(off) or not same or after != (True, True):
+        raise AssertionError("the solver's work depends on the caller's "
+                             "TF32 flags, or changed them")
 
 
 def plane_cgs2_phase(plane_lin: float):
@@ -1415,6 +1465,10 @@ def f64_default_phase():
 # same 'auto' tier (benchlogs/transient_scaling.txt, 12-step means):
 # a comparison band only, 0.5x-2x.
 SCHUR_REF_LIN = {8: 54.5, 9: 72.2, 10: 89.5}
+# The port's own mean GMRES per step at the defaults (Stokes + 3 / 2 / 1
+# steps), the same in every run since the tier was ported: K1's routes
+# sum in one order, so a change of route changes no bit.
+SCHUR_PORT_LIN = {8: 46.0, 9: 55.0, 10: 66.0}
 
 
 def schur_path_phase(matrix_id: int, n_steps: int, argv=(),
@@ -1422,9 +1476,12 @@ def schur_path_phase(matrix_id: int, n_steps: int, argv=(),
     """`run.main --matrix-id N` at its f32 defaults ('auto' -> the Schur
     tier): prep 'sch', every apply through K1 (no plain call), Newton <= 3,
     mean GMRES per step within 0.5x-2x of the JAX package's (or within
-    `lin_band`), peak device memory; then, with `time_forms`, each K1
-    form of the run's own prep checked and timed.  Returns (counts, mean GMRES per step, GMRES
-    iterations of the run)."""
+    `lin_band`) and, with no extra flags, equal to the port's own
+    (SCHUR_PORT_LIN), every K1 form on the tiled route, peak device
+    memory; then, with `time_forms`, each K1 form of the run's own prep
+    checked and timed, both routes in turns from matrix 9 up.  Returns
+    (counts, mean GMRES per step, GMRES iterations of the run, {form:
+    k1_form's result})."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     extra = " " + " ".join(argv) if argv else ""
@@ -1452,26 +1509,33 @@ def schur_path_phase(matrix_id: int, n_steps: int, argv=(),
         raise AssertionError(f"prep {solver.prep_kind}, {kr}")
     if not lo <= lin <= hi:
         raise AssertionError(f"mean GMRES/step {lin} outside {lo}-{hi}")
+    if not argv and lin != SCHUR_PORT_LIN[matrix_id]:
+        raise AssertionError(f"mean GMRES/step {lin}, the port's own is "
+                             f"{SCHUR_PORT_LIN[matrix_id]}")
     if counts["K1"] <= 0 or counts["K2"] or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
+    not_tiled = [f for f in counts["K1 forms"] if f[2] != "tiled"]
+    if not_tiled or counts["K1 rows"]:
+        raise AssertionError(f"K1 forms off the tiled route: {not_tiled}")
     gmres = solver.stokes_result.iters + sum(
         st.lin_iters for _, st, _ in solver.history)
     if not time_forms:
-        return counts, lin, gmres
+        return counts, lin, gmres, {}
     flush = torch.empty(256 * 1024 * 1024 // 4, dtype=torch.float32,
                         device=solver.device)
     rng = np.random.default_rng(2031 + matrix_id)
     prep = solver._exact_prep
-    for form, (offs, planes, n_in) in schur_forms(prep).items():
-        k1_form(f"K1 m{matrix_id} run's {form} float32", offs, planes, n_in,
-                prep.nb, flush, rng)
-    return counts, lin, gmres
+    timed = {form: k1_form(f"K1 m{matrix_id} run's {form} float32", offs,
+                           planes, n_in, prep.nb, flush, rng,
+                           routes=matrix_id >= 9)
+             for form, (offs, planes, n_in) in schur_forms(prep).items()}
+    return counts, lin, gmres, timed
 
 
 def schur_cgs2_phase(lin_xla: float) -> int:
     """Matrix 8 with `--cgs2 pallas`: K3 on the tier's GMRES path, where
     V[:k+1] overflows shared memory; one launch per GMRES iteration."""
-    counts, _, gmres = schur_path_phase(
+    counts, _, gmres, _ = schur_path_phase(
         8, 2, ["--cgs2", "pallas"], (0.8 * lin_xla, 1.25 * lin_xla),
         time_forms=False)
     print(f"K3 launches {counts['K3']} for {gmres} GMRES iterations "
@@ -1777,7 +1841,9 @@ def bench_tools_phase():
     """The two bench tools of the tier on the card at matrix 8: their lines
     present, their numbers finite, every apply through K1."""
     tb_argv = ["--matrix-id", "8", "--preconditioner", "auto", "--steps", "3"]
-    gd_argv = ["--matrix-id", "8", "--skip-slope", "--cgs2", "pallas"]
+    # gmres_decomp's defaults are the JAX tool's ('tl'): the tier is opt-in
+    gd_argv = ["--matrix-id", "8", "--preconditioner", "auto",
+               "--skip-slope", "--cgs2", "pallas"]
     phase("bench tools: transient_bench.main(" + " ".join(tb_argv)
           + ") and gmres_decomp.main(" + " ".join(gd_argv) + ")")
     reset_counters()
@@ -2801,7 +2867,9 @@ def main() -> int:
     k4 = k4_phase(dev, pat, data64, flush)
     halo_k1, halo_k2 = halo_phase(dev, mesh, pat, data64, flush)
     del flush, data64
-    k1_launches, plane_lin = plane_path_phase()
+    k1_launches, plane_lin, plane_out = plane_path_phase()
+    tf32_phase(plane_out)
+    del plane_out
     k3_launches = plane_cgs2_phase(plane_lin)
     k2_launches = scalar_path_phase(plane_lin)
     k3_comp_launches = scalar_comp_phase()
@@ -2810,10 +2878,10 @@ def main() -> int:
     bf16_path_phase("bj")
     msh_phase()
     cli_io_phase()
-    sch_counts, sch_lin, _ = schur_path_phase(8, 3)
+    sch_counts, sch_lin, _, _ = schur_path_phase(8, 3)
     k3_sch_launches = schur_cgs2_phase(sch_lin)
     schur_path_phase(9, 2)
-    schur_path_phase(10, 1)
+    m10_counts, _, _, m10_forms = schur_path_phase(10, 1)
     golden_phase(dev)
     k4_launches = bench_phase()
     bench_tools_phase()
@@ -2851,11 +2919,18 @@ def main() -> int:
     phase_seconds()
     s_hat = {k: v for k, v in sch_counts["K1 forms"].items() if k[1] == 65}
     s_err, s_t, _ = k1_schur[(8, "1x1 S_hat", torch.float32)]
+    s_hat_m10 = sum(v for k, v in m10_counts["K1 forms"].items()
+                    if k[1] == 65)
+    m10_err, m10_t, _ = m10_forms["1x1 S_hat"]
     print(json.dumps({"kernels": [
         kernel_entry("plane_spmv", k1_launches, *k1[("4x4", torch.float32)]),
         kernel_entry("plane_spmv", sum(s_hat.values()), s_err, s_t,
                      entry_name="plane_spmv_s_hat",
                      form="S_hat 1x1 on 65 offsets, matrix 8 'sch' path"),
+        kernel_entry("plane_spmv", s_hat_m10, m10_err, m10_t,
+                     entry_name="plane_spmv_s_hat_m10",
+                     form="S_hat 1x1 on 65 offsets, matrix 10 'sch' path "
+                          "(the run's own prep)"),
         kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)]),
         kernel_entry("dia_spmv_bf16", bf16_launches,
                      *k2_bf16[("A", torch.float32)],

@@ -15,14 +15,19 @@ minv; 'tlp' and 'tl' parts: apply_A, apply_Dinv, coarse, minv.
 
 Usage:
     python -m navierstokes_tpu_torch.bench.gmres_decomp --matrix-id 8 \
-        [--preconditioner auto|two_level|schur] [--spmv plane|auto] \
+        [--preconditioner two_level|auto|schur] [--spmv plane|auto] \
         [--coarse-agg 128] [--cgs2 pallas] [--skip-slope] [--device cuda] \
         [--disc-cache DIR]
 
-The default, preconditioner 'auto' on the plane layout, is the f32
-product default: 'tlp' up to 150k rows, 'sch' above; `--spmv auto` with
-`--preconditioner two_level` gives 'tl'.  `--disc-cache DIR` loads the
-discretization from DIR, or builds it and saves it there.
+The defaults are the JAX tool's configuration: preconditioner
+'two_level', `SolverConfig`'s own spmv (the scalar-DIA 'tl' prep), and
+coarse_agg from the tool's table (48 at matrix 6, 128 at 8, 256 at 10,
+else 48).  The port's opt-ins: `--preconditioner auto` (the f32 product
+default: 'tlp' up to 150k rows, 'sch' above) and `--preconditioner
+schur`, both on the plane layout unless `--spmv` says otherwise and with
+coarse_agg from the solver's size schedule, as `run.py` has it, and
+`--spmv`.  `--disc-cache DIR` loads the discretization from DIR, or
+builds it and saves it there.
 """
 
 from __future__ import annotations
@@ -40,6 +45,11 @@ from navierstokes_tpu_torch.fem.assembly import cached_discretization
 from navierstokes_tpu_torch.mesh.box import scaling_series_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops.cgs2 import cgs2_project
+
+# The JAX tool's per-size coarse_agg (benchlogs/transient_scaling.txt);
+# other matrices take 48.
+COARSE_AGG = {6: 48, 8: 128, 10: 256}
+COARSE_AGG_DEFAULT = 48
 
 # Components per plane of the 'sch' parts that act on a velocity (3) or a
 # pressure (1) vector; every other part takes the whole vector.
@@ -64,15 +74,18 @@ def _part_length(solver, prep, name: str) -> int:
     return solver.disc.ndof
 
 
-def main(argv=None) -> dict:
+def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("--matrix-id", type=int, default=6)
-    p.add_argument("--preconditioner", default="auto",
-                   choices=["auto", "two_level", "schur"])
-    p.add_argument("--spmv", default="plane",
-                   choices=["plane", "auto", "pallas", "xla"])
+    p.add_argument("--preconditioner", default="two_level",
+                   choices=["two_level", "auto", "schur"])
+    p.add_argument("--spmv", default=None,
+                   choices=["plane", "auto", "pallas", "xla"],
+                   help="override SolverConfig.spmv (default: its own "
+                        "under two_level, 'plane' under auto and schur)")
     p.add_argument("--coarse-agg", type=int, default=None,
-                   help="default: the measured size schedule")
+                   help="default: under two_level the JAX tool's table by "
+                        "matrix, else the solver's size schedule")
     p.add_argument("--restart", type=int, default=30)
     p.add_argument("--cgs2", default="xla",
                    choices=["xla", "pallas", "pallas_comp"],
@@ -86,21 +99,39 @@ def main(argv=None) -> dict:
                    help="directory to load the discretization from, or to "
                         "save it to when it holds none")
     args = p.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
         p.error("--device cuda but no CUDA device is available "
                 "(pass --device cpu to run on the CPU)")
+    return args
 
+
+def ns_config(args: argparse.Namespace) -> NSConfig:
+    """The configuration the tool times.  Under two_level, the JAX tool's:
+    SolverConfig's own spmv and coarse_agg from its table; under auto and
+    schur, the port's product default on the plane layout, coarse_agg left
+    to the solver's size schedule (`resolve_coarse_defaults`)."""
+    two_level = args.preconditioner == "two_level"
+    agg = args.coarse_agg
+    if agg is None and two_level:
+        agg = COARSE_AGG.get(args.matrix_id, COARSE_AGG_DEFAULT)
+    spmv = args.spmv or (None if two_level else "plane")
     krylov = SolverConfig(rtol=1e-5, atol=1e-6, maxiter=1000,
                           neumann_order=0,
                           preconditioner=args.preconditioner,
-                          coarse_agg=args.coarse_agg, coarse_dense_max=16384,
+                          coarse_agg=agg, coarse_dense_max=16384,
                           restart=args.restart, cgs2=args.cgs2,
-                          spmv=args.spmv)
-    cfg = NSConfig(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float32",
-                   newton=NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
-                                       du_tol=float("inf")),
-                   krylov=krylov, stokes_krylov=krylov)
+                          **({"spmv": spmv} if spmv else {}))
+    return NSConfig(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float32",
+                    newton=NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
+                                        du_tol=float("inf")),
+                    krylov=krylov, stokes_krylov=krylov)
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    device = torch.device(args.device)
+    cfg = ns_config(args)
     disc = None
     if args.disc_cache:
         t0 = time.perf_counter()

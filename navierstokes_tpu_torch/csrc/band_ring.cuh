@@ -8,16 +8,27 @@
 // loads its own values has a handful of 4-byte loads in flight.  Here the
 // lanes of a producer warp ask the copy engine for whole row segments
 // instead (`cp.async.bulk`, the 1-D bulk copy of the Tensor Memory
-// Accelerator): a stage of the ring is a group of contiguous segments of one
-// row tile, 14-28 KB, and `stages` of them are in flight per SM while the
-// consumer warps multiply from shared memory.  Each stage completes on an
-// `mbarrier` that counts the bytes that have landed.
+// Accelerator).  A stage of the ring is sized in bytes, not in offsets: it
+// holds the row segments of G consecutive node offsets of one row tile
+// (n_out * n_in segments each), G chosen by the wrapper's plan so that a
+// stage is about 16 KB whatever the form, from one offset of a 4x4
+// operator to 8 offsets of a 1x1 one; `stages` of them are in flight per
+// SM while the consumer warps multiply from shared memory, G * n_out * n_in
+// multiply-adds per row for each barrier round trip.  Each stage completes
+// on an `mbarrier` that counts the bytes that have landed.
 //
-// The x window of a row tile comes the same way, one bulk copy per plane on
-// a barrier of its own, so that it too is one request and not a loop of
-// dependent loads; the part of the window outside the matrix is written as
-// exact zeros by plain stores.  The window starts and ends on 16 bytes: the
-// launchers round the smallest offset down and the largest up.
+// The x window of a row tile is made of segments, one per cluster of node
+// offsets (a new cluster wherever the gap to the next offset exceeds the
+// tile: a segment of its own costs the tile's rows again, a contiguous one
+// the gap; at most kMaxClusters, split at the widest gaps), so that a band
+// whose offsets sit in a few tight clusters far apart (the 3 of a 3-D
+// mesh's 15 node offsets, the 5 of their sumset) loads the tile's rows and
+// each cluster's span, not the band's whole width (the wrapper's plan,
+// ops/band_ring.py window_clusters, names the clusters).  One bulk copy
+// per segment and plane, all on one barrier; the part of a segment
+// outside the matrix is written as exact zeros by 16-byte stores.
+// Segments start and end on 16 bytes: the plan rounds a cluster's
+// smallest offset down and its largest up.
 //
 // Roles.  The last warp of the block is the producer, the others consume.
 // The producer's lanes start a stage's copies side by side (one thread
@@ -44,21 +55,23 @@
 // What bounds the ring itself, measured on an H100 (PERF.md): the copy
 // engine of an SM spends ~37 ns on a bulk copy of up to ~1 KB whatever its
 // size, and moves ~30 GB/s on larger ones, which over 132 SMs is the rate
-// of the L2.  The depth of the ring hardly matters beyond two stages.  The
-// same ring built from per-thread `cp.async` 16-byte copies, with one
-// __syncthreads() per stage, was slower at every shape tried.
+// of the L2; so the plan prefers tiles of up to 512 rows (2 KB segments in
+// f32).  The same ring built from per-thread `cp.async` 16-byte copies,
+// with one __syncthreads() per stage, was slower at every shape tried.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
 
 namespace band_ring {
 
 constexpr int kMaxStages = 8;          // slots of the ring at most
+constexpr int kMaxClusters = 8;        // x window segments of a tile
 constexpr int kProducerThreads = 32;   // one warp; its lanes start the copies
-constexpr int kHeaderBytes = 256;      // the mbarriers, padded: ring follows
+constexpr int kHeaderBytes = 512;      // mbarriers, window layout: ring follows
 constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block
 constexpr long long kWaitCycles = 4000000000LL;  // ~2 s: then trap
 
@@ -126,6 +139,22 @@ __device__ __forceinline__ void expect_bytes(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// The bytes to come in this phase, announced without arriving: the
+// producer arrives later (`arrive`), after stores of its own.
+__device__ __forceinline__ void expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival of the calling thread, publishing its prior stores.
+__device__ __forceinline__ void arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
 // One bulk copy global -> shared; its bytes count on `bar` as they land.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -156,34 +185,74 @@ __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// The producer warp: fill the x window of a tile.  xw holds `planes` rows
-// of `w` values; xw[b][c] is x[b * stride + base + c].  The part inside
-// the source's valid range [lo, hi) comes by one bulk copy per plane, the
-// rest is written as exact zeros, which the arrival on `bar` publishes.
+// The x window of a row tile: `n` segments, one per cluster of offsets.
+// Segment c covers x rows [i0 + lo[c], i0 + lo[c] + w[c]) of the tile whose
+// first row is i0, and sits at [at[c], at[c] + w[c]) of each plane of the
+// buffer; a plane of the buffer holds `plane` values, the sum of the w[c].
+// lo, w, at and plane are multiples of 16 bytes.
+struct Window {
+  int n;
+  int lo[kMaxClusters];
+  int w[kMaxClusters];
+  int at[kMaxClusters];
+  int plane;
+};
+
+// The producer warp: fill the x window of the tile at i0.  xw holds
+// `planes` planes of win.plane values; segment c of plane b,
+// xw[b * win.plane + win.at[c] + k], is x[b * stride + i0 + win.lo[c] + k].
+// Lane (c, b) owns segment c of plane b: the part inside the source's
+// valid range [lo, hi) comes by one bulk copy, announced on `bar` with the
+// others' before any starts; the rest, only in the tiles at the ends of the
+// range, is written as exact zeros, 16 bytes a store, by the whole warp
+// while the copies are in flight, and the warp's arrival on `bar` then
+// publishes them.  The producer does this ahead of every stage of the
+// tile, and the slowest block sets the launch's time, so the zero stores
+// run on bounds held in registers: re-read from `win` in shared memory at
+// every store (a store to shared memory may alias it), they held the two
+// end tiles of a launch back long enough to slow the whole launch.
 // A plane of n rows has stride n and range [0, n); with g ghost rows on
 // either side (x pointing at row 0 of the first plane), stride n + 2g and
-// range [-g, n + g).  `base`, `w`, `stride`, `lo` and `hi` are multiples of
-// 16 bytes, `planes` at most 32.
+// range [-g, n + g).  `stride`, `lo`, `hi`, i0 and xw's segments lie on 16
+// bytes; planes * win.n is at most 32.
 template <typename T>
 __device__ __forceinline__ void load_window(T* xw, const T* x, int planes,
                                             int stride, int lo, int hi,
-                                            int base, int w, uint64_t* bar) {
+                                            int i0, const Window& win,
+                                            uint64_t* bar) {
   const int lane = threadIdx.x & 31;
+  const bool mine = lane < planes * win.n;
+  const int c = mine ? lane / planes : 0, b = lane % planes;
+  const int base = i0 + win.lo[c], w = win.w[c];
+  const int at = b * win.plane + win.at[c];     // the segment in xw
   const int g0 = min(max(lo, base), base + w);
   const int g1 = max(min(hi, base + w), g0);
-  for (int b = 0; b < planes; ++b) {
-    for (int c = lane; c < g0 - base; c += 32) xw[b * w + c] = T(0);
-    for (int c = g1 - base + lane; c < w; c += 32) xw[b * w + c] = T(0);
-  }
-  __threadfence_block();
+  const uint32_t bytes = mine ? (uint32_t)((g1 - g0) * sizeof(T)) : 0u;
+  const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
+  if (lane == 0) expect_tx(bar, total);
   __syncwarp();
-  const uint32_t bytes = (uint32_t)((g1 - g0) * sizeof(T));
-  if (lane == 0) expect_bytes(bar, planes * bytes);
-  __syncwarp();
-  if (bytes && lane < planes) {
-    bulk_load(xw + lane * w + (g0 - base), x + (size_t)lane * stride + g0,
-              bytes, bar);
+  if (bytes) {
+    bulk_load(xw + at + (g0 - base), x + ((ptrdiff_t)b * stride + g0), bytes,
+              bar);
   }
+  constexpr int kUnit = 16 / (int)sizeof(T);
+  unsigned edges =
+      __ballot_sync(0xffffffffu, mine && (g0 > base || g1 < base + w));
+  const bool any = edges != 0;
+  while (edges) {
+    const int owner = __ffs(edges) - 1;
+    edges &= edges - 1;
+    uint4* seg = reinterpret_cast<uint4*>(
+        xw + __shfl_sync(0xffffffffu, at, owner));
+    const int z0 = __shfl_sync(0xffffffffu, g0 - base, owner) / kUnit;
+    const int z1 = __shfl_sync(0xffffffffu, g1 - base, owner) / kUnit;
+    const int zw = __shfl_sync(0xffffffffu, w, owner) / kUnit;
+    for (int k = lane; k < z0; k += 32) seg[k] = make_uint4(0, 0, 0, 0);
+    for (int k = z1 + lane; k < zw; k += 32) seg[k] = make_uint4(0, 0, 0, 0);
+  }
+  if (any) __threadfence_block();
+  __syncwarp();
+  if (lane == 0) arrive(bar);
 }
 
 // 16-byte alignment of window bounds, in values of T.

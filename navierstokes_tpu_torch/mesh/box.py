@@ -89,20 +89,23 @@ def channel_mesh(nx: int, ny: int, nz: int, length: float = 4.0,
     return Mesh(coords=coords, tets=tets, node_tags=tags)
 
 
+# Cells (nx, ny, nz) of the scaling series' channel meshes.
+SCALING_SERIES_DIMS = {
+    1: (6, 2, 2),
+    2: (10, 5, 5),
+    3: (17, 8, 8),
+    4: (20, 10, 10),
+    5: (32, 15, 15),
+    6: (46, 24, 24),
+    7: (57, 30, 30),
+    8: (75, 40, 40),
+    9: (95, 50, 50),
+    10: (126, 67, 67),
+}
+
+
 def scaling_series_mesh(matrix_id: int) -> Mesh:
     """Meshes approximating the reference's 10-matrix scaling series
     (matrix_id is 1-based; matrix 6 is the mmesh-class 117,500-row mesh)."""
-    dims = {
-        1: (6, 2, 2),
-        2: (10, 5, 5),
-        3: (17, 8, 8),
-        4: (20, 10, 10),
-        5: (32, 15, 15),
-        6: (46, 24, 24),
-        7: (57, 30, 30),
-        8: (75, 40, 40),
-        9: (95, 50, 50),
-        10: (126, 67, 67),
-    }
-    nx, ny, nz = dims[matrix_id]
+    nx, ny, nz = SCALING_SERIES_DIMS[matrix_id]
     return channel_mesh(nx, ny, nz, length=4.0, obstacle=matrix_id >= 3)

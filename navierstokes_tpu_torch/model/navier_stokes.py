@@ -84,6 +84,7 @@ from navierstokes_tpu_torch.ops.plane_dia import (
     to_planes,
 )
 from navierstokes_tpu_torch.solvers import schur as sch
+from navierstokes_tpu_torch.utils.precision import no_tf32, no_tf32_operators
 from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
@@ -302,13 +303,6 @@ class NavierStokesSolver:
         if self.cfg.krylov.deflation_k and not self._supports_deflation:
             raise ValueError(DEFLATION_SINGLE_CHIP)
         self.device = torch.device(device)
-        # TF32 would round the coarse GEMV's operands to 10 mantissa bits:
-        # the H100 counterpart of the TPU's bf16 matmul trap (181 vs 69
-        # GMRES iterations per step, benchlogs/transient_scaling.txt).
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        assert not torch.backends.cuda.matmul.allow_tf32
-        assert not torch.backends.cudnn.allow_tf32
 
         self.dtype = self.cfg.torch_dtype
         self._sc = scalar_type(self.dtype)
@@ -362,6 +356,7 @@ class NavierStokesSolver:
             UL=UL,
         )
 
+    @no_tf32
     def _ensure_prepared(self):
         """Build J_linear, the exact-Jacobian prep (with its recycled pair
         and Newton-basis shifts) and the residual operators, once."""
@@ -690,6 +685,7 @@ class NavierStokesSolver:
 
         return smooth
 
+    @no_tf32_operators
     def _prep_operators(self, prep: Prep):
         """Prep -> (matvec, b_prep, parts): the left-preconditioned operator
         GMRES iterates, the map of the raw right-hand side to the
@@ -841,6 +837,7 @@ class NavierStokesSolver:
 
         return matvec, b_prep, {"apply_S": apply_S, "neumann": neumann}
 
+    @no_tf32
     def _solve_prepared(self, prep: Prep, rhs: torch.Tensor,
                         solver_cfg) -> GMRESResult:
         """Left-preconditioned solve.  On the plane layout the Krylov space
@@ -961,6 +958,7 @@ class NavierStokesSolver:
         return zero_rows_dia(self.disc.dia_pattern.offsets, stokes,
                              self.disc.bc.is_bc)
 
+    @no_tf32
     def stokes_init(self) -> torch.Tensor:
         """Initial condition from the steady Stokes solve (`:1094-1095`).
         The operator is prepared from `cfg.krylov`, as in the JAX package;
@@ -1082,6 +1080,7 @@ class NavierStokesSolver:
                             seconds=tuple(seconds))
         return u, delta_u, stats
 
+    @no_tf32
     def step(self, u, u_old, delta_u):
         """One backward-Euler step. Returns (u_new, delta_u, stats)."""
         self._ensure_prepared()
@@ -1089,6 +1088,7 @@ class NavierStokesSolver:
 
     # -- Time loop -----------------------------------------------------------
 
+    @no_tf32
     def run(self, n_steps: Optional[int] = None, *, u0=None,
             save_dir: Optional[str] = None, save_every: Optional[int] = None,
             write_vtu_files: bool = False, monitor: bool = True,

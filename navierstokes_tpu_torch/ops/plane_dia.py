@@ -38,7 +38,7 @@ from navierstokes_tpu_torch.ops import band_ring, cuda_lib
 
 PAD = 128   # nbp granularity: whole 128-thread kernel blocks, aligned rows
 MAX_OFFSETS = 128         # kMaxOffsets of csrc/plane_dia.cu
-MAX_TILE = 256            # kMaxTile: rows of a tile, one consumer thread each
+MAX_TILE = 512            # kMaxTile: rows of a tile, one consumer thread each
 ROUTES = ("tiled", "rows")
 
 # Plain integer counters: K1 launches (all, by route, those of the ghost-row
@@ -194,17 +194,28 @@ def spmv_planes_plain(node_offsets: tuple, data: torch.Tensor,
 class TilePlan(NamedTuple):
     """The tiled route's launch: `tn` rows per tile, `n_tiles` tiles walked
     by `grid` persistent blocks, a ring of `stages` slots (one slot: the
-    n_out * n_in row segments of one node offset), `windows` x window
-    buffers (two where a block walks several tiles) of `window` values per
-    input plane, `smem_bytes` of dynamic shared memory."""
+    n_out * n_in row segments of `group` consecutive node offsets), `windows`
+    x window buffers (two where a block walks several tiles) of `window`
+    values per input plane in the segments `clusters` ((lo, hi) node
+    offsets, `band_ring.window_clusters`), `smem_bytes` of dynamic shared
+    memory."""
 
     tn: int
     n_tiles: int
     grid: int
+    group: int
     stages: int
+    clusters: tuple
     window: int
     windows: int
     smem_bytes: int
+
+
+def plan_text(plan: TilePlan) -> str:
+    """One line of a tile plan, as the card's checks print it."""
+    return (f"tile {plan.tn}, {plan.n_tiles} tiles on {plan.grid} blocks, "
+            f"G {plan.group}, {len(plan.clusters)} clusters, {plan.stages} "
+            f"stages, window {plan.window}, {plan.smem_bytes} B")
 
 
 @functools.lru_cache(maxsize=256)
@@ -215,28 +226,42 @@ def tile_plan(node_offsets: tuple, n_out: int, n_in: int, nbp: int,
     with `halo` ghost rows on either side of each plane), or None where the
     shape does not fit the route: a row of nbp values, or the ghost width,
     is not a multiple of 16 bytes (a bulk copy's alignment), or the x
-    window and two stages do not fit shared memory.
+    window and two stages of one offset do not fit shared memory.
 
-    Tiles fill the card in whole waves of one block per SM (`wave_tile`);
-    tile t owns rows [t * tn, min((t + 1) * tn, nbp)) and reads
-    x_b[t * tn + min(D) .. t * tn + tn + max(D)), zero outside [0, nbp),
-    the window's ends rounded outwards to 16 bytes.  Cached: a solver loop
-    asks for the same plan at every launch."""
+    Tiles fill the card in whole waves of one block per SM (`wave_tile`),
+    up to MAX_TILE rows, or half that and so on where a larger tile does
+    not fit; tile t owns rows [t * tn, min((t + 1) * tn, nbp)) and reads,
+    for each cluster (lo, hi), x_b[t * tn + lo .. t * tn + tn + hi), zero
+    outside [0, nbp), the clusters split where offsets are more than tn
+    apart.  A stage carries `stage_group` node offsets, about
+    `band_ring.SLOT_BYTES`.  Cached: a solver loop asks for the same plan
+    at every launch."""
     if (nbp * itemsize) % band_ring.COPY_ALIGN \
             or (halo * itemsize) % band_ring.COPY_ALIGN:
         return None
-    tn = band_ring.wave_tile(nbp, n_sm, MAX_TILE)
-    n_tiles = -(-nbp // tn)
-    grid = min(n_tiles, n_sm)
-    window = band_ring.window_values(tn, node_offsets, itemsize)
-    windows = band_ring.window_buffers(n_tiles, grid)
-    slot_bytes = n_out * n_in * tn * itemsize
-    window_bytes = windows * n_in * window * itemsize
-    stages = band_ring.ring_stages(slot_bytes, window_bytes)
-    if not stages:
-        return None
-    return TilePlan(tn, n_tiles, grid, stages, window, windows,
-                    band_ring.smem_bytes(stages, slot_bytes, window_bytes))
+    max_tile = MAX_TILE
+    while max_tile >= band_ring.WARP:
+        tn = band_ring.wave_tile(nbp, n_sm, max_tile)
+        max_tile //= 2
+        clusters = band_ring.window_clusters(node_offsets, tn, itemsize)
+        n_tiles = -(-nbp // tn)
+        grid = min(n_tiles, n_sm)
+        window = band_ring.window_values(tn, clusters)
+        windows = band_ring.window_buffers(n_tiles, grid)
+        window_bytes = windows * n_in * window * itemsize
+        offset_bytes = n_out * n_in * tn * itemsize
+        group = band_ring.stage_group(
+            offset_bytes, len(node_offsets),
+            band_ring.SMEM_LIMIT - band_ring.HEADER_BYTES - window_bytes)
+        if not group:
+            continue
+        slot_bytes = group * offset_bytes
+        stages = band_ring.ring_stages(slot_bytes, window_bytes)
+        return TilePlan(tn, n_tiles, grid, group, stages, clusters,
+                        window, windows,
+                        band_ring.smem_bytes(stages, slot_bytes,
+                                             window_bytes))
+    return None
 
 
 def tiled_plan(node_offsets: tuple, data: torch.Tensor, x: torch.Tensor,
@@ -279,7 +304,8 @@ def _kernel_fn(route: str, dtype: torch.dtype):
     first use."""
     lib, _ = cuda_lib.load("plane_dia")
     fn = getattr(lib, _C_FUNCS[route, dtype])
-    plan_args = [ctypes.c_int] * 3 if route == "tiled" else []
+    plan_args = ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+                 + [ctypes.c_int] * 4 if route == "tiled" else [])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -320,7 +346,10 @@ def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
                 f"{max(node_offsets)}): its rows and ghost width must be "
                 "whole 16-byte units and its x window fit "
                 f"{band_ring.SMEM_LIMIT} bytes of shared memory")
-    plan_args = () if plan is None else (plan.tn, plan.stages, plan.grid)
+    plan_args = () if plan is None else (
+        len(plan.clusters),
+        band_ring.c_int_array(sum(plan.clusters, ())),
+        plan.tn, plan.group, plan.stages, plan.grid)
     fn = _kernel_fn(route, data.dtype)
     y = torch.empty((n_out * nbp,), dtype=x.dtype, device=x.device)
     offs = band_ring.c_int_array(node_offsets)

@@ -83,6 +83,7 @@ from navierstokes_tpu_torch.solvers.coarse import CoarseSpace
 from navierstokes_tpu_torch.solvers.gmres import GMRESResult, gmres
 from navierstokes_tpu_torch.solvers.sstep import ca_gmres
 from navierstokes_tpu_torch.solvers.vectors import Shards
+from navierstokes_tpu_torch.utils.precision import no_tf32, no_tf32_operators
 
 SCHUR_SINGLE_CHIP = ("preconditioner='schur' is single-chip only (its "
                      "sub-block plane applies are not sharded); use "
@@ -311,6 +312,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
     # -- applies on shards ----------------------------------------------------
 
+    @no_tf32_operators
     def _prep_operators(self, prep: ShardedPrep):
         """(matvec, b_prep, parts) on shards, the distributed counterpart
         of the single-device operators with the same algebra: 'bj' the
@@ -413,6 +415,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
         return coarse
 
+    @no_tf32
     def _solve_prepared(self, prep: ShardedPrep, rhs: torch.Tensor,
                         solver_cfg) -> GMRESResult:
         """The solve on shards: rhs in, the update out; CA-GMRES on 'bj'

@@ -35,6 +35,9 @@ from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.model.navier_stokes import MultilevelCoarse
 from navierstokes_tpu_torch.ops import cgs2 as tcgs2
 from navierstokes_tpu_torch.ops import dia as tdia
+from navierstokes_tpu_torch.ops import plane_dia as tpd
+from navierstokes_tpu_torch.parallel import DistributedNavierStokesSolver
+from navierstokes_tpu_torch.utils.precision import tf32_off
 
 from data_golden_trajectory import TRAJ
 
@@ -264,16 +267,60 @@ def test_cli_writes_dat_files(tmp_path):
         assert len(read_petsc_vec(str(tmp_path / "res" / f))) == 4 * 45
 
 
-def test_solver_turns_tf32_off():
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+@pytest.mark.parametrize("kind", ["single", "distributed"])
+def test_solver_turns_tf32_off(kind, monkeypatch):
     """TF32 would round the coarse GEMV's f32 operands to 10 mantissa bits
-    (the card's counterpart of the TPU bf16 trap): building a solver turns
-    it off."""
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    cfg = NSConfig(krylov=SolverConfig(**_PLANE))
-    NavierStokesSolver(channel_mesh(2, 1, 1), cfg, device=CPU)
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
+    (the card's counterpart of the TPU bf16 trap): the solver turns it off
+    for its own work and only there.  A caller's two flags, set True, read
+    False in every K1 call (the plain version, patched to look) of
+    stokes_init, a step and a run, and are True again after each, and
+    after building the solver (one device, and two shards)."""
+    seen = []
+    plain = tpd.spmv_planes_plain
+
+    def looking(*args, **kwargs):
+        seen.append(_tf32_flags())
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tpd, "spmv_planes_plain", looking)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cfg = NSConfig(dtype="float32", krylov=SolverConfig(**_PLANE),
+                   stokes_krylov=SolverConfig(**_PLANE))
+    mesh = channel_mesh(6, 2, 2)
+    if kind == "single":
+        solver = NavierStokesSolver(mesh, cfg, device=CPU)
+    else:
+        solver = DistributedNavierStokesSolver(mesh, cfg, devices=[CPU] * 2)
+    assert _tf32_flags() == (True, True)
+    u = solver.stokes_init()
+    assert _tf32_flags() == (True, True)
+    solver.step(u, u, torch.zeros_like(u))
+    assert _tf32_flags() == (True, True)
+    solver.run(1, u0=u, monitor=False)
+    assert _tf32_flags() == (True, True)
+    assert seen and set(seen) == {(False, False)}, seen
+
+
+def test_tf32_off_restores_on_an_exception(monkeypatch):
+    """`tf32_off` gives the caller's flags back when an exception leaves,
+    and leaves flags that are off as they are."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    with pytest.raises(RuntimeError, match="inside"):
+        with tf32_off():
+            assert _tf32_flags() == (False, False)
+            raise RuntimeError("inside")
+    assert _tf32_flags() == (True, False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    with tf32_off():
+        assert _tf32_flags() == (False, False)
+    assert _tf32_flags() == (False, False)
 
 
 @pytest.mark.parametrize("cfg_kw,krylov_kw,match", [

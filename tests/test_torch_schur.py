@@ -328,6 +328,64 @@ def test_gmres_decomp_disc_cache(capsys, tmp_path):
     assert all(np.isfinite(v) and v > 0 for v in second.values())
 
 
+def test_gmres_decomp_defaults_are_the_jax_tools(capsys):
+    """With no preconditioner, spmv or coarse-agg flag, gmres_decomp at
+    matrix 1 prepares what the JAX tool prepares on the same mesh: its
+    configuration (two_level, SolverConfig's own spmv, coarse_agg from
+    the tool's table, else 48) resolves to the same prep kind, coarse_agg
+    and aggregate count."""
+    from navierstokes_tpu.bench import gmres_decomp as jgd
+    from navierstokes_tpu.config import NewtonConfig as JNewton
+    from navierstokes_tpu.mesh.box import scaling_series_mesh as j_series
+
+    gmres_decomp.main(["--matrix-id", "1", "--device", "cpu",
+                       "--skip-slope"])
+    line = next(ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("ndof="))
+    got = dict(kv.split("=") for kv in line.split() if "=" in kv)
+    del got["ndof"]
+
+    agg = jgd._COARSE_DEFAULTS.get(1, {}).get("coarse_agg", 48)
+    kr = JSolver(rtol=1e-5, atol=1e-6, maxiter=1000, neumann_order=0,
+                 preconditioner="two_level", coarse_agg=agg,
+                 coarse_dense_max=16384, restart=30, cgs2="xla")
+    jcfg = JNS(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float32",
+               newton=JNewton(rtol=1e-4, atol=1e-5, stol=1e-6,
+                              du_tol=float("inf")),
+               krylov=kr, stokes_krylov=kr)
+    js = JSolverModel(j_series(1), jcfg)
+    js._ensure_prepared()
+    want = {"prep": js._exact_prep[0],
+            "preconditioner": js.cfg.krylov.preconditioner,
+            "coarse_agg": str(js.cfg.krylov.coarse_agg),
+            "n_agg": str(js._coarse_space.n_agg)}
+    assert got == want == {"prep": "tl", "preconditioner": "two_level",
+                           "coarse_agg": "48", "n_agg": want["n_agg"]}
+
+
+@pytest.mark.parametrize("matrix_id,want", [(8, 128), (9, 256), (10, 256)])
+def test_gmres_decomp_opt_ins_keep_the_size_schedule(matrix_id, want):
+    """Under `--preconditioner auto` gmres_decomp leaves coarse_agg to the
+    solver's size schedule, as `run.py` does, so it times the product's
+    coarse level (matrix 9: 256, where the JAX tool's table falls back to
+    48); only two_level takes the table.  Resolved without a run, from the
+    series' node count."""
+    from navierstokes_tpu_torch.config import resolve_coarse_defaults
+    from navierstokes_tpu_torch.mesh.box import SCALING_SERIES_DIMS
+
+    nv = int(np.prod([d + 1 for d in SCALING_SERIES_DIMS[matrix_id]]))
+    auto = gmres_decomp.ns_config(gmres_decomp.parse_args(
+        ["--matrix-id", str(matrix_id), "--preconditioner", "auto",
+         "--device", "cpu"]))
+    assert auto.krylov.coarse_agg is None and auto.krylov.spmv == "plane"
+    kr = resolve_coarse_defaults(auto, nv).krylov
+    assert (kr.preconditioner, kr.coarse_agg) == ("schur", want)
+    tl = gmres_decomp.ns_config(gmres_decomp.parse_args(
+        ["--matrix-id", str(matrix_id), "--device", "cpu"])).krylov
+    assert tl.preconditioner == "two_level"
+    assert tl.coarse_agg == gmres_decomp.COARSE_AGG.get(matrix_id, 48)
+
+
 def test_gmres_decomp_prints_its_lines(capsys):
     """gmres_decomp at matrix 1 on the CPU through the 'sch' prep: a line
     and a finite time for every part of `_prep_operators`, the matvec, the
