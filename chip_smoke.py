@@ -17,16 +17,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the launch floor (each route on one tile) and what a launch of each
      route costs the host; then both routes at a quarter, 4x and 8x of
      matrix 6's rows, where a block walks several tiles;
-  4. K2 against its plain version on the matrix-6 scalar-DIA operators:
-     A (81 diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and
-     float64, and on random data likewise, timed like K1.  Phases 3 and 4
-     require a second call to repeat the first bit for bit;
+  4. K2, both routes (tiled and row-per-thread), against its plain version
+     and each other bit for bit on the matrix-6 scalar-DIA operators: A (81
+     diagonals), S = D^{-1} A (123) and D^{-1} (7), float32 and float64,
+     and on random data likewise, the routes timed in turns like K1's, with
+     the launch floor of each and what a launch of each costs the host.
+     Phases 3 and 4 require a second call to repeat the first bit for bit;
   4b. K2's bf16 form (matvec_dtype): A and S rounded to bf16, x in float32
-     (rel 1e-6) and float64 (rel 1e-13) against its plain version, also on
-     random data nonzero outside the matrix, a second call equal bit for
-     bit; timed in turns with the f32 K2 on the same operator, flushed and
-     L2-warm, beside cuSPARSE f32 and the bound (no PyTorch call computes
-     bf16 data times an f32 x);
+     (rel 1e-6) and float64 (rel 1e-13), both routes against its plain
+     version and each other bit for bit, also on random data nonzero
+     outside the matrix, a second call equal bit for bit; the routes timed
+     in turns (flushed, flushed clean, L2-warm), the chosen one in turns
+     with the f32 K2 on the same operator, beside cuSPARSE f32 and the
+     bound (no PyTorch call computes bf16 data times an f32 x), the launch
+     floor and the host cost of a launch of each route;
   5. K1 on the Schur tier's forms: the real S_hat (1x1 on its 65 node
      offsets, the sumset of the 15) of matrices 6 and 8, both routes,
      float32 and float64, equal bit for bit between routes and within the
@@ -72,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      matrix 6, Stokes + 2 steps, K2 counted, the same physics checks;
  12b. matvec_dtype='bfloat16' at matrix 6 in float32 on 'tl' and 'bj',
      through NavierStokesSolver beside full precision: every step
-     converges, the bf16 K2 form counted and no plain call, on 'tl' the
+     converges, the bf16 K2 form counted (every bf16 launch on the tiled
+     route) and no plain call, on 'tl' the
      state of 3 steps from one Stokes state within rel 5e-2 of full
      precision (on 'bj' printed: it drifts in the JAX package alike);
  12c. the CLI's I/O at matrix 6: `--msh` on the mesh written by
@@ -107,6 +112,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      product default, 3 steps; its TRANSIENT line, finite numbers) and
      `gmres_decomp --preconditioner auto` (every part of the 'sch' prep,
      the four GEMVs and K3; the tool's default is the JAX tool's 'tl');
+     then `gmres_decomp --matrix-id 6` with its slope (two fixed-count
+     solves) beside its matvec + CGS2 estimate;
  20. the discretization cache: `transient_bench --disc-cache` at matrix 8
      twice, the second run loading the cache, with equal counts and an
      equal final state bit for bit, both setup times printed;
@@ -136,14 +143,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 then distribution (ROADMAP slice 15), four shards on the one card:
  (h) K1 and K2 in their ghost-row forms: matrix 6 cut into 4 shards (and
      8 for K1), K1 4x4 f32 and f64 and 3x3 f32 (both routes where they
-     fit), K2 A (81 diagonals) and S (123) f32 and f64, D^-1 (7) and A in
-     bf16 with f32 x: every shard's rows equal the rows of one launch on
-     the whole vector bit for bit and match the plain version within the
-     bars of phases 3-4, also on random data with nonzero ghost rows; one
-     interior shard timed flushed and L2-warm beside its plain version,
-     cuSPARSE CSR on the shard's rows with their ghost columns, the
-     shard's bound and the whole-matrix launch; the stored ghost width,
-     the route and the plan printed;
+     fit), K2 A (81 diagonals) and S (123) f32 and f64, D^-1 (7) f32 and
+     f64, A and S in bf16 with f32 x, A f32 in 8 shards and matrix 8's A
+     f32 and S f64 in 4 (K2 on both routes where they fit, equal bit for
+     bit): every shard's rows equal the rows of one launch on the whole
+     vector bit for bit and match the plain version within the bars of
+     phases 3-4, also on random data with nonzero ghost rows; one interior
+     shard timed flushed and L2-warm (both K2 routes in turns) beside its
+     plain version, cuSPARSE CSR on the shard's rows with their ghost
+     columns, the shard's bound and the whole-matrix launch; the stored
+     ghost width, the route and the plan printed;
  (i) `parallel.dryrun.dryrun_multichip(4, cuda:0)` (one f32 step, K1's
      ghost-row form) and `dryrun_wide(4, cuda:0)` (matrix 4 in f64: one
      step from one shared Stokes state against one device, rel < 1e-8,
@@ -157,7 +166,8 @@ then distribution (ROADMAP slice 15), four shards on the one card:
      both step times printed;
  (k) the scalar paths over 4 shards at matrix 6: the f64 CLI default 'bj'
      and 'tl' f32 (spmv='pallas'), Stokes + 2 steps each, K2's ghost-row
-     form counted, 'tl' beside one device at the same resolved config
+     form counted, its launches per route (the tiled route launched on
+     both), 'tl' beside one device at the same resolved config
      (Newton equal, mean GMRES within 0.8x-1.25x); then CA-GMRES ('bj', neumann_order=0) on channel(64, 2,
      2), whose basis is the one-exchange power sweep (each sweep one K2
      ghost-row launch on the extended window): one solve of the first
@@ -225,6 +235,7 @@ from navierstokes_tpu_torch.io.mtx import load_bcsr_npz, read_mtx
 from navierstokes_tpu_torch.mesh.box import channel_mesh, scaling_series_mesh
 from navierstokes_tpu_torch.mesh.gmsh import write_gmsh
 from navierstokes_tpu_torch.model import NavierStokesSolver
+from navierstokes_tpu_torch.ops import band_ring
 from navierstokes_tpu_torch.ops import cgs2 as k3_ops
 from navierstokes_tpu_torch.ops import cuda_lib
 from navierstokes_tpu_torch.ops import dia as dia_ops
@@ -531,15 +542,21 @@ def build_phase():
         print(ptxas_summary(info.log))
 
 
-def m6_operator(dev):
-    """The matrix-6 exact-Jacobian operator (BC rows applied), float64."""
-    mesh = scaling_series_mesh(6)
+def scaling_operator(matrix_id: int, dev):
+    """The exact-Jacobian operator (BC rows applied) of a scaling-series
+    matrix, float64: (mesh, DIA pattern, data)."""
+    mesh = scaling_series_mesh(matrix_id)
     disc = build_discretization(mesh, torch.float64, dev)
     pat = disc.dia_pattern
     data = assemble_dia_values(disc.vol, disc.grad, disc.h, 1e-3, 300.0, 0.05,
                                disc.dia_elem_map, terms=LINEAR_TERMS,
                                K=pat.K, ndof=disc.ndof)
-    data = zero_rows_dia(pat.offsets, data, disc.bc.is_bc)
+    return mesh, pat, zero_rows_dia(pat.offsets, data, disc.bc.is_bc)
+
+
+def m6_operator(dev):
+    """The matrix-6 exact-Jacobian operator (BC rows applied), float64."""
+    mesh, pat, data = scaling_operator(6, dev)
     if pat.nnz != NNZ_M6:
         raise AssertionError(f"matrix-6 nnz {pat.nnz} != {NNZ_M6}")
     return mesh, pat, data
@@ -649,33 +666,29 @@ def k1_phase(dev, mesh, pat, data64, flush):
     return summary
 
 
+def k2_floor(dev, data_dtype=torch.float32) -> dict:
+    """What a launch of each K2 route costs on the card: one diagonal of
+    256 rows (data in `data_dtype`, x in f32), CUDA events, L2-warm."""
+    one = torch.ones((1, 256), dtype=data_dtype, device=dev)
+    x = torch.ones(256, dtype=torch.float32, device=dev)
+    return {route: event_ms(lambda: dia_ops.spmv_dia_cuda(
+        (0,), one, x, route=route), 25) for route in dia_ops.ROUTES}
+
+
 def k2_phase(dev, mesh, pat, data64, flush):
     phase("K2 against its plain version (matrix-6 shapes)")
-    nb, n = mesh.nv, 4 * mesh.nv
-    inv = block4_inverse(diag_blocks_from_dia(pat.offsets, data64, nb),
-                         pivot_eps=1e-300, shift=1e-8)
-    s_off, s_data = scale_rows_dia(pat, data64, inv)
-    dinv = block_diag_to_dia(inv)
-    forms = {"A": (pat.offsets, data64), "S": (s_off, s_data),
-             "Dinv": (dinv.offsets, dinv.data)}
+    n = 4 * mesh.nv
+    forms = scalar_operators(pat, data64, mesh.nv)
+    s_off = forms["S"][0]
     print(f"matrix 6: n={n} K(A)={pat.K} K(S)={len(s_off)} K(Dinv)=7 "
           f"halo(A)={max(map(abs, pat.offsets))} "
           f"halo(S)={max(map(abs, s_off))}")
+    floor = k2_floor(dev)
+    print("K2 launch floor (one diagonal of 256 rows, CUDA events): "
+          + ", ".join(f"{r} {ms:.4f} ms" for r, ms in floor.items()))
     rng = np.random.default_rng(2025)
     summary = {}
-
-    def check(label, offsets, data, x, bar):
-        """K2 against the plain version: rel error within `bar`, a second
-        call equal bit for bit; returns (ref, rel, max_abs)."""
-        y = dia_ops.spmv_dia(offsets, data, x)
-        torch.cuda.synchronize()
-        ref = dia_ops.spmv_dia_plain(offsets, data, x)
-        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
-        same = torch.equal(dia_ops.spmv_dia(offsets, data, x), y)
-        if not (y.dtype == data.dtype and rel <= bar and same):
-            raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar}), "
-                                 f"repeat bit for bit: {same}")
-        return ref, rel, float((y - ref).abs().max())
+    n_sm = band_ring.sm_count(dev)
 
     for dtype, bar in BARS.items():
         for form, (offsets, d64) in forms.items():
@@ -683,15 +696,21 @@ def k2_phase(dev, mesh, pat, data64, flush):
             x = torch.as_tensor(rng.standard_normal(n), dtype=dtype,
                                 device=dev)
             label = f"K2 {form} {str(dtype)[6:]} (K={len(offsets)})"
-            ref, rel, abs_err = check(label, offsets, data, x, bar)
+            chosen = dia_ops.dia_route(data, x, n_sm)
+
+            def run_route(route):
+                return dia_ops.spmv_dia_cuda(offsets, data, x, route=route)
+
+            ref = dia_ops.spmv_dia_plain(offsets, data, x)
+            errs, same = check_routes(label, run_route, ref, bar)
+            if not same:
+                raise AssertionError(f"{label}: the routes differ")
+            rel, abs_err = errs[chosen]
             csr = dia_csr(offsets, data)
             lib_rel = float(torch.linalg.norm(csr @ x - ref)
                             / torch.linalg.norm(ref))
             if lib_rel > bar:
                 raise AssertionError(f"cuSPARSE CSR disagrees: {lib_rel}")
-
-            def kern():
-                dia_ops.spmv_dia(offsets, data, x)
 
             def plain():
                 dia_ops.spmv_dia_plain(offsets, data, x)
@@ -699,30 +718,51 @@ def k2_phase(dev, mesh, pat, data64, flush):
             def library():
                 csr @ x
 
-            t = time_all(kern, plain, library, flush)
+            t = time_routes(run_route, chosen, plain, library, flush)
+            if form == "A" and dtype == torch.float32:
+                k2_host_line(label, run_route)
             in_range = sum(n - abs(d) for d in offsets)
             t["bound"], t["bound_by"] = bound_ms(
                 data.element_size() * (data.numel() + 2 * n), 2 * in_range,
                 dtype)
-            print(f"{label}: rel {rel:.3e} max_abs {abs_err:.3e} | kernel "
-                  f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm | "
-                  f"plain {t['p_flush']:.4f} / {t['p']:.4f} ms | cuSPARSE "
-                  f"CSR (nnz {csr.values().numel()}) {t['lib_flush']:.4f} / "
+            print(f"{label}: route {chosen}; rel {rel:.3e} max_abs "
+                  f"{abs_err:.3e}, routes equal bit for bit | "
+                  f"{routes_line(t)} | plain {t['p_flush']:.4f} / "
+                  f"{t['p']:.4f} ms | cuSPARSE CSR (nnz "
+                  f"{csr.values().numel()}) {t['lib_flush']:.4f} / "
                   f"{t['lib']:.4f} ms | bound {t['bound']:.4f} ms "
                   f"({t['bound_by']})", flush=True)
             summary[(form, dtype)] = (abs_err, t)
 
         # Data that is nonzero where i + off leaves the matrix: the mask
-        # per load must keep it out.
+        # per load (both routes) must keep it out.
         offsets = pat.offsets
         data = torch.as_tensor(rng.standard_normal((len(offsets), n)),
                                dtype=dtype, device=dev)
         x = torch.as_tensor(rng.standard_normal(n), dtype=dtype, device=dev)
-        _, rel, _ = check(f"K2 random data {dtype}", offsets, data, x, bar)
+        errs, same = check_routes(
+            f"K2 random data {dtype}",
+            lambda route: dia_ops.spmv_dia_cuda(offsets, data, x,
+                                                route=route),
+            dia_ops.spmv_dia_plain(offsets, data, x), bar)
         print(f"K2 A's offsets {str(dtype)[6:]}, random data nonzero outside "
-              f"the matrix: rel {rel:.3e}")
-    print("K2: every call repeated bit for bit")
+              "the matrix: rel " + ", ".join(f"{r} {e[0]:.3e}"
+                                             for r, e in errs.items())
+              + f", routes equal bit for bit: {same}")
+        if not same:
+            raise AssertionError("K2 random data: the routes differ")
+    print("K2: every call repeated bit for bit, both routes")
     return summary
+
+
+def k2_host_line(label: str, run_route) -> None:
+    """What a launch of each K2 route costs the host (`host_us_per_launch`,
+    the routes in turns)."""
+    host = host_us_per_launch(run_route)
+    print(f"{label}: a launch costs the host, in turns of 2,000 launches in "
+          "a loop with no sync, "
+          + ", ".join(f"{r} {'/'.join(f'{u:.1f}' for u in us)} us"
+                      for r, us in host.items()), flush=True)
 
 
 def pair_turns(fa, fb, flush, reps: int = 25) -> dict:
@@ -744,33 +784,27 @@ def pair_turns(fa, fb, flush, reps: int = 25) -> dict:
 def k2_bf16_phase(dev, mesh, pat, data64, flush) -> dict:
     """K2's bf16 form (matvec_dtype) on the matrix-6 A (81 diagonals) and
     S = D^-1 A (123), the operator rounded to bf16, x in f32 and in f64:
-    against its plain version (rel 1e-6 with f32 x, 1e-13 with f64 x), a
-    second call equal bit for bit, also on random data nonzero where
-    i + off leaves the matrix; timed in turns with the f32 K2 on the same
-    operator, with the bound and cuSPARSE f32 beside it."""
+    both routes against the plain version (rel 1e-6 with f32 x, 1e-13 with
+    f64 x) and against each other bit for bit, a second call equal bit for
+    bit, also on random data nonzero where i + off leaves the matrix; the
+    routes timed in turns (flushed, flushed clean, L2-warm), the chosen
+    route in turns with the f32 K2 on the same operator, with the bound,
+    cuSPARSE f32 beside it and the host cost of a launch."""
     phase("K2 bf16 form against its plain version (matrix-6 A and S)")
     print("No single PyTorch call computes bf16 operator data times an f32 "
           "or f64 x, so the bf16 form has no library time; the f32 K2 and "
           "cuSPARSE's f32 CSR SpMV on the same operator stand beside it.")
-    nb, n = mesh.nv, 4 * mesh.nv
-    inv = block4_inverse(diag_blocks_from_dia(pat.offsets, data64, nb),
-                         pivot_eps=1e-300, shift=1e-8)
-    s_off, s_data = scale_rows_dia(pat, data64, inv)
-    forms = {"A": (pat.offsets, data64), "S": (s_off, s_data)}
+    n = 4 * mesh.nv
+    ops = scalar_operators(pat, data64, mesh.nv)
+    forms = {"A": ops["A"], "S": ops["S"]}
     bars = {torch.float32: 1e-6, torch.float64: 1e-13}
     rng = np.random.default_rng(2077)
+    n_sm = band_ring.sm_count(dev)
+    floor = k2_floor(dev, torch.bfloat16)
+    print("K2 bf16 launch floor (one diagonal of 256 rows, f32 x, CUDA "
+          "events): " + ", ".join(f"{r} {ms:.4f} ms" for r, ms in
+                                  floor.items()))
     summary = {}
-
-    def check(label, offsets, data, x, bar):
-        y = dia_ops.spmv_dia(offsets, data, x)
-        torch.cuda.synchronize()
-        ref = dia_ops.spmv_dia_plain(offsets, data, x)
-        rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
-        same = torch.equal(dia_ops.spmv_dia(offsets, data, x), y)
-        if not (y.dtype == x.dtype and rel <= bar and same):
-            raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar}), "
-                                 f"repeat bit for bit: {same}")
-        return ref, rel, float((y - ref).abs().max())
 
     for form, (offsets, d64) in forms.items():
         data16 = d64.to(torch.bfloat16).contiguous()
@@ -781,25 +815,29 @@ def k2_bf16_phase(dev, mesh, pat, data64, flush) -> dict:
                                 device=dev)
             label = (f"K2 bf16 {form} x {str(x_dtype)[6:]} "
                      f"(K={len(offsets)})")
-            _, rel, abs_err = check(label, offsets, data16, x, bar)
+            chosen = dia_ops.dia_route(data16, x, n_sm)
+
+            def run_route(route):
+                return dia_ops.spmv_dia_cuda(offsets, data16, x, route=route)
+
+            ref = dia_ops.spmv_dia_plain(offsets, data16, x)
+            errs, same = check_routes(label, run_route, ref, bar)
+            if not same:
+                raise AssertionError(f"{label}: the routes differ")
+            rel, abs_err = errs[chosen]
             x32 = x.to(torch.float32)
-
-            def bf16():
-                dia_ops.spmv_dia(offsets, data16, x)
-
-            def f32():
-                dia_ops.spmv_dia(offsets, data32, x32)
 
             def plain():
                 dia_ops.spmv_dia_plain(offsets, data16, x)
 
-            t = pair_turns(bf16, f32, flush)
-            t["k"], t["k_flush"] = t["a"], t["a_flush"]
-            t["p"] = event_ms(plain, 25)
-            t["p_flush"] = event_ms(plain, 25, flush=flush)
-            t["lib"] = t["lib_flush"] = None
+            t = time_routes(run_route, chosen, plain, None, flush)
+            f32 = pair_turns(lambda: run_route(chosen),
+                             lambda: dia_ops.spmv_dia(offsets, data32, x32),
+                             flush)
             cus = (event_ms(lambda: csr @ x32, 25, flush=flush),
                    event_ms(lambda: csr @ x32, 25))
+            if form == "A" and x_dtype == torch.float32:
+                k2_host_line(label, run_route)
             in_range = sum(n - abs(d) for d in offsets)
             t["bound"], t["bound_by"] = bound_ms(
                 data16.numel() * 2 + 2 * n * x.element_size(),
@@ -808,11 +846,13 @@ def k2_bf16_phase(dev, mesh, pat, data64, flush) -> dict:
                                     2 * in_range, torch.float32)
 
             def turns(key):
-                return "/".join(f"{ms:.4f}" for ms in t[key + "_turns"])
+                return "/".join(f"{ms:.4f}" for ms in f32[key + "_turns"])
 
-            print(f"{label}: rel {rel:.3e} max_abs {abs_err:.3e} | bf16 "
-                  f"{turns('a_flush')} ms flushed, {turns('a')} ms L2-warm "
-                  f"| f32 K2 {turns('b_flush')} / {turns('b')} ms (bound "
+            print(f"{label}: route {chosen}; rel {rel:.3e} max_abs "
+                  f"{abs_err:.3e}, routes equal bit for bit | "
+                  f"{routes_line(t)} | in turns with the f32 K2: bf16 "
+                  f"{turns('a_flush')} / {turns('a')} ms, f32 "
+                  f"{turns('b_flush')} / {turns('b')} ms (f32 bound "
                   f"{f32_bound:.4f}) | plain {t['p_flush']:.4f} / "
                   f"{t['p']:.4f} ms | cuSPARSE f32 {cus[0]:.4f} / "
                   f"{cus[1]:.4f} ms | bound {t['bound']:.4f} ms "
@@ -825,11 +865,19 @@ def k2_bf16_phase(dev, mesh, pat, data64, flush) -> dict:
         for x_dtype, bar in bars.items():
             x = torch.as_tensor(rng.standard_normal(n), dtype=x_dtype,
                                 device=dev)
-            _, rel, _ = check(f"K2 bf16 {form} random", offsets, rand16, x,
-                              bar)
+            errs, same = check_routes(
+                f"K2 bf16 {form} random",
+                lambda route: dia_ops.spmv_dia_cuda(offsets, rand16, x,
+                                                    route=route),
+                dia_ops.spmv_dia_plain(offsets, rand16, x), bar)
+            if not same:
+                raise AssertionError(f"K2 bf16 {form} random: the routes "
+                                     "differ")
             print(f"K2 bf16 {form}'s offsets x {str(x_dtype)[6:]}, random "
-                  f"data nonzero outside the matrix: rel {rel:.3e}")
-    print("K2 bf16: every call repeated bit for bit")
+                  "data nonzero outside the matrix: rel "
+                  + ", ".join(f"{r} {e[0]:.3e}" for r, e in errs.items())
+                  + ", routes equal bit for bit")
+    print("K2 bf16: every call repeated bit for bit, both routes")
     return summary
 
 
@@ -1231,6 +1279,8 @@ def counters() -> dict:
             "K1 plain": pd.plain_calls,
             "K2": dia_ops.kernel_launches,
             "K2 halo": dia_ops.halo_launches,
+            "K2 tiled": dia_ops.route_launches["tiled"],
+            "K2 rows": dia_ops.route_launches["rows"],
             "K2 forms": dict(dia_ops.form_launches),
             "K2 plain": dia_ops.plain_calls,
             "K3": k3_ops.kernel_launches, "K3 plain": k3_ops.plain_calls,
@@ -1420,10 +1470,12 @@ def scalar_path_phase(plane_lin: float):
     if not 0.8 * plane_lin <= lin <= 1.25 * plane_lin:
         raise AssertionError(f"mean GMRES/step {lin} outside 0.8x-1.25x of "
                              f"the plane path's {plane_lin}")
+    # every K2 form of this path is masked f32: the rows route
     if counts["K2"] <= 0 or counts["K1"] or counts["K3"] \
+            or counts["K2 rows"] != counts["K2"] \
             or not no_plain_calls(counts):
         raise AssertionError(f"kernel counts {counts}")
-    return counts["K2"]
+    return counts["K2 rows"]
 
 
 def scalar_comp_phase():
@@ -1647,8 +1699,11 @@ def bf16_path_phase(kind: str) -> tuple:
           + ("(bar 5e-2)" if kind == "tl" else "(printed only)")
           + "; from its own Stokes "
           f"state: rel {rel(own, u32):.3e} (printed only); bf16 K2 launches "
-          f"in 3 steps {bf16}")
-    if bf16 <= 0:
+          f"in 3 steps {bf16}; K2 launches by route: tiled "
+          f"{counts['K2 tiled']}, rows {counts['K2 rows']}")
+    # the bf16 operator takes the tiled route (ops/dia.dia_route), the
+    # full-precision residual and D^-1 the rows route
+    if bf16 <= 0 or counts["K2 tiled"] != bf16:
         raise AssertionError(f"bf16 K2 launches {counts}")
     if kind == "tl" and not drift < 5e-2:
         raise AssertionError(f"bf16 state drift {drift}")
@@ -1872,6 +1927,34 @@ def bench_tools_phase():
                for p in parts) or counts["K1"] <= 0 or counts["K3"] <= 0 \
             or not no_plain_calls(counts):
         raise AssertionError(f"gmres_decomp: {rows}, {counts}")
+
+
+def gmres_slope_phase() -> dict:
+    """gmres_decomp at matrix 6 in its default configuration (the JAX
+    tool's two_level) with the slope: the two fixed-count solves, their
+    iteration counts and the slope per iteration beside the tool's
+    matvec + CGS2 estimate; times positive and finite, the 64-iteration
+    solve longer in iterations, the slope the tool's own difference."""
+    argv = ["--matrix-id", "6"]
+    phase("gmres_decomp.main(" + " ".join(argv) + "): the slope per GMRES "
+          "iteration beside the estimate")
+    reset_counters()
+    rows = gmres_decomp.main(argv)
+    counts = counters()
+    slope = (rows["gmres_64"] - rows["gmres_32"]) \
+        / (rows["iters_64"] - rows["iters_32"])
+    print(f"gmres_decomp slope: {rows['per_iteration'] * 1e6:.2f} us per "
+          f"iteration ({rows['iters_32']} -> {rows['iters_64']} iterations, "
+          f"{rows['gmres_32'] * 1e3:.3f} -> {rows['gmres_64'] * 1e3:.3f} ms) "
+          f"beside the estimate {rows['estimate'] * 1e6:.2f} us (matvec + "
+          f"CGS2); kernel counts {counts}", flush=True)
+    if not (all(np.isfinite(rows[k]) and rows[k] > 0
+                for k in ("gmres_32", "gmres_64", "estimate"))
+            and rows["iters_64"] > rows["iters_32"]
+            and rows["per_iteration"] == slope
+            and counts["K1"] + counts["K2"] > 0 and no_plain_calls(counts)):
+        raise AssertionError(f"gmres_decomp: {rows}, {counts}")
+    return rows
 
 
 # --- the solver options of ROADMAP slices 2/5, 10, 11, 12, 13 -------------
@@ -2422,79 +2505,144 @@ def halo_k1_phase(dev, mesh, pat, data64, flush) -> dict:
     return summary
 
 
-def halo_k2_phase(dev, mesh, pat, data64, flush) -> dict:
-    """(h), K2: matrix 6's A (81 diagonals) and S (123) in f32 and f64,
-    D^-1 (7), and A in bf16 with f32 x, cut into 4 shards (A and D^-1 by
-    the 'tl' rule, S by the 'bj' rule); checked and timed as K1."""
-    nb, n = mesh.nv, 4 * mesh.nv
+def scalar_operators(pat, data64, nb: int) -> dict:
+    """A scalar-DIA operator's three forms on the scalar paths: A, S =
+    D^-1 A ('bj') and the 7-diagonal D^-1, as (offsets, f64 data)."""
     inv = block4_inverse(diag_blocks_from_dia(pat.offsets, data64, nb),
                          pivot_eps=1e-300, shift=1e-8)
     s_off, s_data = scale_rows_dia(pat, data64, inv)
     dinv = block_diag_to_dia(inv)
-    P = SHARDS
+    return {"A": (pat.offsets, data64), "S": (s_off, s_data),
+            "Dinv": (dinv.offsets, dinv.data)}
+
+
+def halo_k2_form(label: str, offsets, d64, store, x_dtype, P: int,
+                 mult: int, dev, rng, flush, host: bool = False) -> tuple:
+    """One K2 form cut into P shards (rows per shard by `mult`, the 'tl'
+    rule 4 * 48 or the 'bj' rule 1): on each route where every launch has a
+    plan, every shard's rows equal to the whole-vector launch's bit for bit
+    and the routes to each other, within the plain version's bar, also on
+    random data and ghost rows; shard 1 timed on both routes in turns
+    beside its plain version, cuSPARSE on the shard and its bound; the
+    whole vector in one launch by the wrapper's route.  Returns (max_abs,
+    times) of the chosen route."""
+    n = d64.shape[1]
+    data = d64.to(store or x_dtype).contiguous()
+    bar = 1e-6 if store is not None else BARS[x_dtype]
+    L = tpart.scalar_shard_rows(n, offsets, P, mult)
+    h = tpart.halo_of(offsets)
+    x = torch.as_tensor(rng.standard_normal(n), dtype=x_dtype, device=dev)
+    shards = tpart.split_rows(data, L, [dev] * P).parts
+    windows = tpart.exchange(tpart.split_rows(x, L, [dev] * P).parts, h)
+    n_sm = band_ring.sm_count(dev)
+    routes = [r for r in dia_ops.ROUTES if r == "rows" or (
+        dia_ops.tiled_plan(data, n_sm) and dia_ops.tiled_plan(shards[1],
+                                                              n_sm))]
+    ref = torch.cat([dia_ops.spmv_dia_plain(offsets, d, w, halo=h)
+                     for d, w in zip(shards, windows)])[:n]
+    got = {}
+    for route in routes:
+        got[route] = torch.cat([
+            dia_ops.spmv_dia_cuda(offsets, d, w, halo=h, route=route)
+            for d, w in zip(shards, windows)])[:n]
+        if not torch.equal(got[route], dia_ops.spmv_dia_cuda(
+                offsets, data, x, route=route)):
+            raise AssertionError(f"{label} {route}: shard rows differ from "
+                                 "the whole-vector launch")
+    if not all(torch.equal(got[r], got["rows"]) for r in routes):
+        raise AssertionError(f"{label}: the routes differ")
+    rel = float(torch.linalg.norm(got["rows"] - ref) / torch.linalg.norm(ref))
+    if rel > bar:
+        raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar})")
+    rd = torch.randn(shards[1].shape, device=dev).to(data.dtype)
+    rw = torch.randn(windows[1].shape, dtype=x_dtype, device=dev)
+    rref = dia_ops.spmv_dia_plain(offsets, rd, rw, halo=h)
+    rys = [dia_ops.spmv_dia_cuda(offsets, rd, rw, halo=h, route=r)
+           for r in routes]
+    rrel = float(torch.linalg.norm(rys[0] - rref) / torch.linalg.norm(rref))
+    if rrel > bar or not all(torch.equal(y, rys[0]) for y in rys):
+        raise AssertionError(f"{label} random ghosts: rel {rrel:.3e}, "
+                             "routes equal: "
+                             f"{all(torch.equal(y, rys[0]) for y in rys)}")
+    d1, w1 = shards[1], windows[1]
+    chosen = dia_ops.dia_route(d1, w1, n_sm, halo=h)
+    csr = None if store else shard_csr(offsets, d1, h)
+
+    def run_route(route):
+        return dia_ops.spmv_dia_cuda(offsets, d1, w1, halo=h, route=route)
+
+    def plain():
+        dia_ops.spmv_dia_plain(offsets, d1, w1, halo=h)
+
+    library = None if csr is None else (lambda: csr @ w1)
+    if len(routes) == 2:
+        t = time_routes(run_route, chosen, plain, library, flush)
+        times = routes_line(t)
+        if host:
+            k2_host_line(label, run_route)
+    else:
+        t = time_all(lambda: run_route("rows"), plain, library, flush)
+        times = (f"rows {t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms "
+                 "L2-warm (no tiled plan: bf16 data with an odd row count)")
+    whole_ms = (event_ms(lambda: dia_ops.spmv_dia_cuda(offsets, data, x),
+                         25, flush=flush),
+                event_ms(lambda: dia_ops.spmv_dia_cuda(offsets, data, x),
+                         25))
+    t["bound"], t["bound_by"] = bound_ms(
+        d1.numel() * d1.element_size()
+        + (w1.numel() + L) * w1.element_size(), 2 * d1.numel(), x_dtype)
+    lib = "none (bf16 data)" if csr is None else \
+        f"{t['lib_flush']:.4f} / {t['lib']:.4f} ms"
+    print(f"{label}: L={L} rows per shard, ghost width {h}; route {chosen}; "
+          f"shard rows equal the whole-vector launch bit for bit on "
+          f"{'/'.join(routes)}, routes equal; rel {rel:.3e}, random ghosts "
+          f"{rrel:.3e} | shard 1: {times} | plain {t['p_flush']:.4f} / "
+          f"{t['p']:.4f} ms | cuSPARSE on the shard {lib} | bound "
+          f"{t['bound']:.4f} ms ({t['bound_by']}) | whole vector, one "
+          f"launch: {whole_ms[0]:.4f} / {whole_ms[1]:.4f} ms", flush=True)
+    return float((got["rows"] - ref).abs().max()), t
+
+
+def halo_k2_phase(dev, mesh, pat, data64, flush, big: int = 8) -> dict:
+    """(h), K2: matrix 6's A (81 diagonals) and S (123) in f32 and f64,
+    D^-1 (7) in f32 and f64, A and S in bf16 with f32 x, cut into 4 shards
+    (A and D^-1 by the 'tl' rule, S by the 'bj' rule); A f32 in 8 shards;
+    matrix `big`'s (8) A f32 and S f64 in 4 shards; checked on both routes
+    and timed as K1."""
+    ops = scalar_operators(pat, data64, mesh.nv)
     rng = np.random.default_rng(2092)
-    forms = (("A", pat.offsets, data64, 4 * 48, torch.float32, None),
-             ("A", pat.offsets, data64, 4 * 48, torch.float64, None),
-             ("S", s_off, s_data, 1, torch.float32, None),
-             ("S", s_off, s_data, 1, torch.float64, None),
-             ("Dinv", dinv.offsets, dinv.data, 4 * 48, torch.float32, None),
-             ("A", pat.offsets, data64, 4 * 48, torch.float32,
-              torch.bfloat16))
+    tl, bj = 4 * 48, 1
+    forms = (("A", None, torch.float32, tl), ("A", None, torch.float64, tl),
+             ("S", None, torch.float32, bj), ("S", None, torch.float64, bj),
+             ("Dinv", None, torch.float32, tl),
+             ("Dinv", None, torch.float64, bj),
+             ("A", torch.bfloat16, torch.float32, tl),
+             ("S", torch.bfloat16, torch.float32, bj))
     summary = {}
-    for form, offsets, d64, mult, x_dtype, store in forms:
-        data = d64.to(store or x_dtype).contiguous()
-        bar = 1e-6 if store is not None else BARS[x_dtype]
-        L = tpart.scalar_shard_rows(n, offsets, P, mult)
-        h = tpart.halo_of(offsets)
-        x = torch.as_tensor(rng.standard_normal(n), dtype=x_dtype,
-                            device=dev)
-        shards = tpart.split_rows(data, L, [dev] * P).parts
-        windows = tpart.exchange(tpart.split_rows(x, L, [dev] * P).parts, h)
-        got = torch.cat([dia_ops.spmv_dia_cuda(offsets, d, w, halo=h)
-                         for d, w in zip(shards, windows)])[:n]
-        label = (f"K2 {form} {str(data.dtype)[6:]}"
+    for form, store, x_dtype, mult in forms:
+        offsets, d64 = ops[form]
+        dt = store or x_dtype
+        label = (f"K2 {form} {str(dt)[6:]}"
                  + (f" x {str(x_dtype)[6:]}" if store else "")
-                 + f" (K={len(offsets)}) with ghost rows, {P} shards")
-        if not torch.equal(got, dia_ops.spmv_dia_cuda(offsets, data, x)):
-            raise AssertionError(f"{label}: shard rows differ from the "
-                                 "whole-vector launch")
-        ref = torch.cat([dia_ops.spmv_dia_plain(offsets, d, w, halo=h)
-                         for d, w in zip(shards, windows)])[:n]
-        rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
-        if rel > bar:
-            raise AssertionError(f"{label}: rel {rel:.3e} (bar {bar})")
-        rd = torch.randn(shards[1].shape, device=dev).to(data.dtype)
-        rw = torch.randn(windows[1].shape, dtype=x_dtype, device=dev)
-        rref = dia_ops.spmv_dia_plain(offsets, rd, rw, halo=h)
-        rrel = float(torch.linalg.norm(
-            dia_ops.spmv_dia_cuda(offsets, rd, rw, halo=h) - rref)
-            / torch.linalg.norm(rref))
-        if rrel > bar:
-            raise AssertionError(f"{label} random ghosts: rel {rrel:.3e}")
-        d1, w1 = shards[1], windows[1]
-        csr = None if store else shard_csr(offsets, d1, h)
-        t = time_all(lambda: dia_ops.spmv_dia_cuda(offsets, d1, w1, halo=h),
-                     lambda: dia_ops.spmv_dia_plain(offsets, d1, w1, halo=h),
-                     None if csr is None else (lambda: csr @ w1), flush)
-        whole_ms = (event_ms(lambda: dia_ops.spmv_dia_cuda(offsets, data, x),
-                             25, flush=flush),
-                    event_ms(lambda: dia_ops.spmv_dia_cuda(offsets, data, x),
-                             25))
-        t["bound"], t["bound_by"] = bound_ms(
-            d1.numel() * d1.element_size()
-            + (w1.numel() + L) * w1.element_size(), 2 * d1.numel(), x_dtype)
-        lib = "none (bf16 data)" if csr is None else \
-            f"{t['lib_flush']:.4f} / {t['lib']:.4f} ms"
-        print(f"{label}: L={L} rows per shard, ghost width {h}; shard rows "
-              f"equal the whole-vector launch bit for bit; rel {rel:.3e}, "
-              f"random ghosts {rrel:.3e} | shard 1: kernel "
-              f"{t['k_flush']:.4f} ms flushed, {t['k']:.4f} ms L2-warm | "
-              f"plain {t['p_flush']:.4f} / {t['p']:.4f} ms | cuSPARSE on the "
-              f"shard {lib} | bound {t['bound']:.4f} ms ({t['bound_by']}) | "
-              f"whole matrix, one launch: {whole_ms[0]:.4f} / "
-              f"{whole_ms[1]:.4f} ms", flush=True)
-        summary[(form, str(data.dtype), x_dtype)] = (
-            float((got - ref).abs().max()), t)
+                 + f" (K={len(offsets)}) with ghost rows, {SHARDS} shards")
+        summary[(form, str(dt), x_dtype)] = halo_k2_form(
+            label, offsets, d64, store, x_dtype, SHARDS, mult, dev, rng,
+            flush, host=(form == "A" and dt == torch.float32))
+    offsets, d64 = ops["A"]
+    summary[("A 8 shards", "torch.float32", torch.float32)] = halo_k2_form(
+        f"K2 A float32 (K={len(offsets)}) with ghost rows, 8 shards",
+        offsets, d64, None, torch.float32, 8, tl, dev, rng, flush)
+    del ops
+    _, pat8, data8 = scaling_operator(big, dev)
+    ops8 = scalar_operators(pat8, data8, data8.shape[1] // 4)
+    for form, x_dtype, mult in (("A", torch.float32, tl),
+                                ("S", torch.float64, bj)):
+        offsets, d64 = ops8[form]
+        summary[(f"{form} matrix {big}", str(x_dtype), x_dtype)] = \
+            halo_k2_form(
+            f"K2 {form} {str(x_dtype)[6:]} (K={len(offsets)}) with ghost "
+            f"rows, matrix {big} (n={d64.shape[1]}), {SHARDS} shards", offsets,
+            d64, None, x_dtype, SHARDS, mult, dev, rng, flush)
     return summary
 
 
@@ -2627,7 +2775,10 @@ def dist_scalar_phase(dev, matrix_id: int = 6) -> dict:
         "Stokes + 2 steps", mesh, bj_cfg, [dev] * SHARDS, 2,
         stokes_must_converge=False, max_newton=None)
     check_state(mesh, u)
-    if bj_counts["K2 halo"] <= 0 or bj_counts["K1"]:
+    print(f"'bj' K2 launches by route: tiled {bj_counts['K2 tiled']}, rows "
+          f"{bj_counts['K2 rows']} (ghost-row {bj_counts['K2 halo']})")
+    if bj_counts["K2 halo"] <= 0 or bj_counts["K1"] \
+            or bj_counts["K2 tiled"] <= 0:
         raise AssertionError(f"'bj' counts {bj_counts}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
@@ -2636,8 +2787,10 @@ def dist_scalar_phase(dev, matrix_id: int = 6) -> dict:
             "shards, Stokes + 2 steps", mesh,
             f32_flagship_cfg(krylov=dict(spmv="pallas")), [dev] * SHARDS, 2)
     check_state(mesh, u)
+    print(f"'tl' K2 launches by route: tiled {tl_counts['K2 tiled']}, rows "
+          f"{tl_counts['K2 rows']} (ghost-row {tl_counts['K2 halo']})")
     if solver.prep_kind != "tl" or tl_counts["K2 halo"] <= 0 \
-            or tl_counts["K1"]:
+            or tl_counts["K1"] or tl_counts["K2 tiled"] <= 0:
         raise AssertionError(f"'tl' counts {tl_counts}")
     # one device at the same resolved config (plain two_level, 'tl')
     kr = solver.cfg.krylov
@@ -2706,6 +2859,7 @@ def dist_scalar_phase(dev, matrix_id: int = 6) -> dict:
     return {"bj K2 halo": bj_counts["K2 halo"],
             "tl K2 halo": tl_counts["K2 halo"],
             "K2 halo": bj_counts["K2 halo"] + tl_counts["K2 halo"],
+            "K2 tiled": bj_counts["K2 tiled"] + tl_counts["K2 tiled"],
             "CA K2 halo": cg_["K2 halo"]}
 
 
@@ -2885,6 +3039,7 @@ def main() -> int:
     golden_phase(dev)
     k4_launches = bench_phase()
     bench_tools_phase()
+    gmres_slope_phase()
     disc_cache_phase()
     options = {
         "(a) reference mode": reference_mode_phase(dev),
@@ -2910,8 +3065,9 @@ def main() -> int:
         {"(l) us": block_us, "(o) drift": drift["rows"],
          "(o) ca_bench": ca}, default=str))
 
-    print(f"K2 launches: scalar two-level path {k2_launches}, float64 "
-          f"default {f64_launches}, bf16 form on 'tl' {bf16_launches}; K3 "
+    print(f"K2 launches: scalar two-level path {k2_launches} (rows), float64 "
+          f"default {f64_launches}, bf16 form on 'tl' {bf16_launches} "
+          f"(tiled); K3 "
           f"launches: plane path {k3_launches}, "
           f"'tl' with pallas_comp {k3_comp_launches}, Schur tier at matrix "
           f"8 {k3_sch_launches}")
@@ -2931,11 +3087,14 @@ def main() -> int:
                      entry_name="plane_spmv_s_hat_m10",
                      form="S_hat 1x1 on 65 offsets, matrix 10 'sch' path "
                           "(the run's own prep)"),
-        kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)]),
+        kernel_entry("dia_spmv", k2_launches, *k2[("A", torch.float32)],
+                     form="A float32, route rows; launches: the rows route "
+                          "on the matrix-6 'tl' path"),
         kernel_entry("dia_spmv_bf16", bf16_launches,
                      *k2_bf16[("A", torch.float32)],
-                     form="A bf16 operator, float32 x, matrix 6 'tl' path "
-                          "with matvec_dtype='bfloat16'"),
+                     form="A bf16 operator, float32 x, route tiled; "
+                          "launches: the tiled route on the matrix-6 'tl' "
+                          "path with matvec_dtype='bfloat16'"),
         kernel_entry("cgs2_project", k3_launches,
                      *k3[(torch.float32, 117_760, 15, False)]),
         kernel_entry("spmpv_dia", k4_launches, *k4[(torch.float32, 2)]),
@@ -2946,11 +3105,12 @@ def main() -> int:
                           "shards of matrix 6; launches: the (j) "
                           "distributed 'tlp' run"),
         kernel_entry("dia_spmv_halo",
-                     distributed["(k) scalar paths"]["K2 halo"],
+                     distributed["(k) scalar paths"]["K2 tiled"],
                      *halo_k2[("A", "torch.float32", torch.float32)],
                      form=f"A float32 with ghost rows, one of {SHARDS} "
-                          "shards of matrix 6; launches: the (k) 'bj' and "
-                          "'tl' distributed runs"),
+                          "shards of matrix 6, route tiled; launches: the "
+                          "tiled route in the (k) 'bj' and 'tl' distributed "
+                          "runs"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -235,7 +235,8 @@ def main(argv=None) -> dict:
     t64, i64 = timed_solve(64)
     log(f"  gmres 64 fixed iters ({i64} done) {t64 * 1e3:10.3f} ms")
     per = (t64 - t32) / max(i64 - i32, 1)
-    rows.update({"gmres_32": t32, "gmres_64": t64, "per_iteration": per})
+    rows.update({"gmres_32": t32, "gmres_64": t64, "iters_32": i32,
+                 "iters_64": i64, "per_iteration": per})
     log(f"  per-iteration (slope {i32}->{i64} iterations) "
         f"{per * 1e6:10.2f} us (matvec + "
         f"CGS2 predict {est * 1e6:.2f}; the gap is the V update, the "

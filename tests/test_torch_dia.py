@@ -370,14 +370,326 @@ def test_bf16_kernel_matches_plain_on_the_card():
 
 
 def test_constants_match_the_source():
-    """The wrapper mirrors K2's limit on the diagonals; the kernel's
-    parameter block (the offsets by value, beside three pointers and n)
-    stays inside the 4 KB a launch may pass."""
+    """The wrapper mirrors K2's limits: the diagonals, the tiled route's
+    threads and chunk depth; the parameter block (the offsets by value
+    beside three pointers, n, the ghost width and the tile) stays inside
+    the 4 KB a launch may pass; one source, no header to hash; the four
+    entry points of each route."""
     text = (cuda_lib.CSRC / "dia.cu").read_text()
     k2 = {m[1]: int(m[2]) for m in re.finditer(
         r"constexpr int (k\w+) = (\d+);", text)}
     assert k2["kMaxDiagonals"] == tdia.MAX_DIAGONALS
     assert k2["kThreads"] % 32 == 0 and k2["kThreads"] <= 1024
-    assert 4 * (k2["kMaxDiagonals"] + 1) + 3 * 8 + 4 <= 4096
+    assert k2["kMaxThreads"] == tdia.MAX_THREADS
+    assert tdia.MAX_THREADS % 32 == 0 and tdia.MAX_THREADS <= 1024
+    assert k2["kDepth"] == tdia.DEPTH >= 1
+    assert 4 * (k2["kMaxDiagonals"] + 1) + 3 * 8 + 3 * 4 <= 4096
     assert '#include "' not in text      # one source, no header to hash
     assert cuda_lib.source_files("dia") == [cuda_lib.CSRC / "dia.cu"]
+    for form in ("f32", "f64", "bf16_f32", "bf16_f64"):
+        assert f'extern "C" int dia_spmv_{form}(' in text
+        assert f'extern "C" int dia_spmv_tiled_{form}(' in text
+
+
+# --- the tiled route: what Python decides -----------------------------------
+
+M6_SHARD = 29_376        # rows of one of 4 shards of matrix 6 ('tl' rule)
+M6_BJ_SHARD = 29_375     # the same by the 'bj' rule (whole rows): odd
+_ITEMSIZE = {"f32": 4, "f64": 8, "bf16": 2}
+
+_PLAN_CASES = [          # (n, data form, SMs)
+    (M6_SHARD, "f32", 132), (M6_SHARD, "f64", 132), (M6_SHARD, "bf16", 132),
+    (M6_BJ_SHARD, "f32", 132), (M6_BJ_SHARD, "f64", 132),
+    (117_500, "f32", 132), (117_500, "bf16", 132),   # n % 8 = 4
+    (117_502, "bf16", 132),                          # n % 4 = 2
+    (14_784, "f32", 132),                            # one of 8 shards
+    (127_776, "f64", 132),                           # one of 4 of matrix 8
+    (511_024, "bf16", 132),
+    (3_000, "f64", 5),
+    (100, "f32", 132),                               # fewer rows than a warp
+]
+
+
+@pytest.mark.parametrize("n,form,n_sm", _PLAN_CASES,
+                         ids=[f"{c[0]}-{c[1]}-{c[2]}" for c in _PLAN_CASES])
+def test_tile_plan_covers_every_row_once(n, form, n_sm):
+    """Tiles of whole warps of rows cover [0, n) exactly once, in whole
+    waves of `n_sm` blocks; threads are whole warps, at most MAX_THREADS,
+    one row each (a pair for bf16 data).  No plan asks for an alignment of
+    the rows: loads are of one row or one pair, so n % 4 != 0 and odd
+    shards (the 'bj' rule) take the route in f32 and f64."""
+    size = _ITEMSIZE[form]
+    rows = 2 if size == 2 else 1
+    plan = tdia.tile_plan(n, size, n_sm)
+    assert plan is not None
+    assert plan.tn % 32 == 0 and plan.tn % rows == 0
+    assert plan.threads == -(-plan.tn // (32 * rows)) * 32
+    assert plan.threads <= tdia.MAX_THREADS
+    assert (plan.n_tiles - 1) * plan.tn < n <= plan.n_tiles * plan.tn
+    waves = -(-plan.n_tiles // n_sm)
+    assert plan.tn <= max(32, -(-n // (n_sm * waves)) + 31)
+    covered = np.zeros(n, dtype=int)
+    for tile in range(plan.n_tiles):
+        covered[tile * plan.tn:(tile + 1) * plan.tn] += 1
+    assert np.all(covered == 1)
+
+
+def test_odd_bf16_has_no_plan():
+    """bf16 data with an odd n (a 'bj' shard of matrix 6) has no tiled plan:
+    a row pair is one 4-byte load; f32 and f64 take any n."""
+    assert tdia.tile_plan(M6_BJ_SHARD, 2) is None
+    assert tdia.tile_plan(M6_BJ_SHARD, 4) is not None
+    assert tdia.tile_plan(M6_BJ_SHARD, 8) is not None
+
+
+def test_shard_plan_fills_every_sm():
+    """A shard of matrix 6 (29,376 rows in 4) takes 132 tiles of 224 rows
+    in every data form, one wave on 132 SMs (the 'rows' route: 115 blocks
+    of 256 threads on 132 SMs)."""
+    for form, size in _ITEMSIZE.items():
+        plan = tdia.tile_plan(M6_SHARD, size, 132)
+        assert (plan.tn, plan.n_tiles) == (224, 132), form
+        assert plan.threads == (128 if size == 2 else 224)
+    assert -(-M6_SHARD // 256) == 115
+
+
+def test_plan_text_names_the_plan():
+    plan = tdia.tile_plan(M6_SHARD, 4, 132)
+    assert tdia.plan_text(plan) == (
+        f"tile 224, 132 tiles of 224 threads, chunks of {tdia.DEPTH} "
+        "diagonals")
+
+
+_A_LIKE = tuple(range(-40, 41))          # 81 diagonals
+_ROUTE_CASES = {
+    # case: (n, data dtype, x dtype, ghost rows, the route)
+    "masked_f32_shard": (M6_SHARD, "f32", "f32", False, "rows"),
+    "masked_f64_whole": (117_500, "f64", "f64", False, "rows"),
+    "masked_bf16_whole": (117_500, "bf16", "f32", False, "tiled"),
+    "masked_bf16_f64_whole": (117_500, "bf16", "f64", False, "rows"),
+    "ghost_f32_shard": (M6_SHARD, "f32", "f32", True, "tiled"),
+    "ghost_f64_odd_shard": (M6_BJ_SHARD, "f64", "f64", True, "tiled"),
+    "ghost_f32_8_shards": (14_784, "f32", "f32", True, "tiled"),
+    "ghost_bf16_f64_shard": (M6_SHARD, "bf16", "f64", True, "tiled"),
+    "ghost_bf16_odd_shard": (M6_BJ_SHARD, "bf16", "f32", True, "rows"),
+    "ghost_f32_matrix8_shard": (127_776, "f32", "f32", True, "rows"),
+    "ghost_bf16_matrix8_shard": (127_872, "bf16", "f32", True, "rows"),
+    "ghost_one_wave": (132 * 256, "f64", "f64", True, "tiled"),
+    "ghost_past_one_wave": (132 * 256 + 1, "f64", "f64", True, "rows"),
+    "bf16_two_waves": (132 * 896, "bf16", "f32", False, "tiled"),
+    "bf16_past_two_waves": (132 * 896 + 2, "bf16", "f32", False, "rows"),
+    "bf16_off_4": (2_000, "bf16", "f32", False, "rows"),
+}
+_DTYPE = {"f32": torch.float32, "f64": torch.float64, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("case", list(_ROUTE_CASES))
+def test_route_rule(case):
+    """`dia_route` names 'tiled' exactly where its docstring says: bf16
+    data with f32 x at up to TILED_BF16_MAX_PER_SM threads per SM (matrix
+    6's whole vector), any data with ghost rows at up to TILED_MAX_PER_SM
+    (a shard of matrix 6 in 4 or 8), where `tiled_plan` has a plan; 'rows'
+    for every masked f32/f64 form, a shard of matrix 8, bf16 data with f64
+    x on the whole vector, an odd n or data off 4 bytes with bf16.  (Shapes
+    only: the data is a broadcast zero, x zeros.)"""
+    n, dd, xd, ghosts, want = _ROUTE_CASES[case]
+    ddt, xdt = _DTYPE[dd], _DTYPE[xd]
+    halo = 2607 if ghosts else 0
+    flat = torch.zeros(n + 1, dtype=ddt)
+    row = flat[1:] if case == "bf16_off_4" else flat[:-1]
+    data = row.expand(len(_A_LIKE), n)
+    x = torch.zeros(n + 2 * halo, dtype=xdt)
+    plan = tdia.tiled_plan(data, 132)
+    assert (plan is None) == (case in ("ghost_bf16_odd_shard", "bf16_off_4"))
+    assert tdia.dia_route(data, x, 132, halo) == want
+    if case == "bf16_off_4":        # the shape fits, the address not
+        assert data.data_ptr() % 4 and tdia.tile_plan(n, 2) is not None
+
+
+def _chunk_order(k: int, p: int) -> list:
+    """The order in which the tiled kernel sums a row's diagonals: its loop
+    over whole chunks of p, two a turn, then the tail one at a time
+    (`dia_spmv_tiled_kernel`, written out)."""
+    order = []
+    full = k // p * p
+    c = 0
+    if full > 0:
+        held = list(range(0, p))                  # load(a, 0)
+        while c + 2 * p <= full:
+            nxt = list(range(c + p, c + 2 * p))   # load(b, c + p)
+            order += held                         # sum(a)
+            if c + 2 * p < full:
+                held = list(range(c + 2 * p, c + 3 * p))
+            order += nxt                          # sum(b)
+            c += 2 * p
+        if c < full:
+            order += held
+            c += p
+    order += list(range(c, k))
+    return order
+
+
+@pytest.mark.parametrize("k", [1, 7, 15, 16, 17, 31, 32, 33, 47, 48, 49,
+                               64, 65, 81, 123, 256])
+def test_chunks_sum_every_diagonal_once_in_order(k):
+    """The tiled kernel's chunk loop (two chunks of DEPTH a turn, the next
+    chunk's loads issued before the held one is summed, then the tail)
+    sums diagonals 0 .. k - 1 once each, in order: the same sum, bit for
+    bit, as the 'rows' kernels' loop over k."""
+    assert _chunk_order(k, tdia.DEPTH) == list(range(k))
+
+
+def _tiled_emulation(offsets, data, x, n_sm, halo=0):
+    """K2's tiled route in plain torch: its tiles, and in each its rows'
+    terms in the kernel's chunk order, x zero outside [0, n) (or read from
+    the ghost rows)."""
+    k, n = data.shape
+    plan = tdia.tile_plan(n, data.element_size(), n_sm)
+    order = _chunk_order(k, tdia.DEPTH)
+    xa = x.to(torch.promote_types(x.dtype, torch.float32))
+    y = torch.full((n,), float("nan"), dtype=x.dtype)
+    for tile in range(plan.n_tiles):
+        i0 = tile * plan.tn
+        rows = torch.arange(i0, min(i0 + plan.tn, n))
+        acc = torch.zeros(len(rows), dtype=x.dtype)
+        for kk in order:
+            src = rows + offsets[kk]
+            inside = (src >= -halo) & (src < n + halo)
+            xv = torch.zeros(len(rows), dtype=x.dtype)
+            xv[inside] = xa[halo + src[inside]]
+            acc = acc + data[kk, rows].to(x.dtype) * xv
+        assert torch.isnan(y[rows]).all()          # written once
+        y[rows] = acc
+    assert not torch.isnan(y).any()
+    return y, plan
+
+
+_EMULATION_CASES = [
+    # (offsets, n, n_sm, ghost rows)
+    ("A", 448, 132, False),     # 14 tiles of 32 rows
+    ("A", 2_500, 1, False),     # one block's worth of SMs: tiles of 256
+    ("S", 448, 132, False),
+    ("A", 1_000, 4, True),      # a shard's form
+    ("S", 3_001, 1, True),      # odd n ('bj' rule) in f32/f64
+    ("Dinv", 450, 132, False),
+    ("coarse", 448, 5, False),
+]
+_FORMS = {"f32": (torch.float32, torch.float32),
+          "f64": (torch.float64, torch.float64),
+          "bf16_f32": (torch.bfloat16, torch.float32),
+          "bf16_f64": (torch.bfloat16, torch.float64)}
+# bf16 data with an odd n takes the 'rows' route: no plan to emulate
+_EMULATION_PARAMS = [(form,) + c for c in _EMULATION_CASES for form in _FORMS
+                     if not (form.startswith("bf16") and c[1] % 2)]
+
+
+@pytest.mark.parametrize(
+    "form,offsets,n,n_sm,ghosts", _EMULATION_PARAMS,
+    ids=[f"{c[1]}-{c[2]}-{c[3]}" + ("-ghost" if c[4] else "") + f"-{c[0]}"
+         for c in _EMULATION_PARAMS])
+def test_tiled_emulation_matches_plain_and_pallas(jdisc, form, offsets, n,
+                                                  n_sm, ghosts):
+    """The tiled route's tiles and chunk order, emulated in plain torch,
+    equal the plain version bit for bit (the same products and sums in
+    the same order: zeros outside the matrix add nothing) and, in f64,
+    spmv_dia_pallas in interpret mode on the same numpy inputs (rel 1e-12;
+    masked and with ghost rows, x_prehalo=True).  The data is random and
+    nonzero where i + off leaves the matrix; ghost rows are random too."""
+    offs = _offset_sets(jdisc.dia_pattern)[offsets]
+    ddt, xdt = _FORMS[form]
+    rng = np.random.default_rng(len(offs) * n + n_sm)
+    h = max(abs(d) for d in offs) if ghosts else 0
+    d_np = rng.standard_normal((len(offs), n))
+    x_np = rng.standard_normal(n + 2 * h)
+    data = torch.as_tensor(d_np).to(ddt)
+    x = torch.as_tensor(x_np).to(xdt)
+    y, plan = _tiled_emulation(offs, data, x, n_sm, halo=h)
+    assert plan.n_tiles >= 2
+    assert torch.equal(y, tdia.spmv_dia_plain(offs, data, x, halo=h))
+    if form == "f64":
+        if ghosts:
+            want = spmv_dia_pallas(offs, pretile_dia(jnp.asarray(d_np), n,
+                                                     tile=256),
+                                   jnp.asarray(x_np), n=n, x_prehalo=True,
+                                   interpret=True)
+        else:
+            want = spmv_dia_pallas(offs, jnp.asarray(d_np),
+                                   jnp.asarray(x_np), tile=256,
+                                   interpret=True)
+        assert _rel(y.numpy(), np.asarray(want)) <= 1e-12
+
+
+def test_bf16_ghost_rows_with_float32_x_match_pallas(jdisc):
+    """The plain ghost-row form on bf16 data with an f32 x against the JAX
+    package's spmv_dia_pallas on pretiled data with x_prehalo=True in
+    interpret mode (x kept in f32, the sum in f32): rel 1e-6."""
+    offs = jdisc.dia_pattern.offsets
+    n = 1_000
+    h = max(abs(d) for d in offs)
+    rng = np.random.default_rng(31)
+    j16, t16 = _bf16_pair(rng, len(offs), n)
+    x = rng.standard_normal(n + 2 * h).astype(np.float32)
+    want = np.asarray(spmv_dia_pallas(offs, pretile_dia(j16, n, tile=256),
+                                      jnp.asarray(x), n=n, x_prehalo=True,
+                                      interpret=True))
+    tdia.reset_counters()
+    got = tdia.spmv_dia(offs, t16, torch.as_tensor(x), halo=h)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    assert tdia.plain_calls == 1 and tdia.kernel_launches == 0
+    assert _rel(got.double().numpy(), want.astype(np.float64)) <= 1e-6
+
+
+def test_route_counters_and_cpu_tensors():
+    """Launches are counted per route; a CPU tensor never reaches a CUDA
+    route, whichever is asked for, and an unknown route is refused."""
+    assert set(tdia.route_launches) == set(tdia.ROUTES) == {"tiled", "rows"}
+    data = torch.zeros(7, 64, dtype=torch.float64)
+    x = torch.zeros(64, dtype=torch.float64)
+    offs = tuple(range(-3, 4))
+    tdia.reset_counters()
+    tdia.spmv_dia(offs, data, x)
+    for route in tdia.ROUTES + (None,):
+        with pytest.raises(ValueError, match="CUDA"):
+            tdia.spmv_dia_cuda(offs, data, x, route=route)
+    assert tdia.plain_calls == 1 and tdia.kernel_launches == 0
+    assert tdia.route_launches == {"tiled": 0, "rows": 0}
+
+
+@pytest.mark.cuda
+def test_routes_match_plain_and_each_other_on_the_card():
+    """Both routes of K2 on the card, masked, with ghost rows and on bf16
+    data (f32 and f64 x), A, S and D^{-1} offset sets of a small channel:
+    equal to each other bit for bit and within the plain version's bars
+    (f32 x rel 1e-5, f64 1e-12), each launch counted under its route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K2 has no CPU or interpret mode")
+    from navierstokes_tpu_torch.fem.assembly import build_discretization
+    from navierstokes_tpu_torch.mesh import channel_mesh
+
+    pat = build_discretization(channel_mesh(12, 6, 6), torch.float64,
+                               torch.device("cpu")).dia_pattern
+    sets = (pat.offsets, pat.scaled_offsets, tuple(range(-3, 4)))
+    rng = np.random.default_rng(29)
+    tdia.reset_counters()
+    launches = 0
+    for ddt, xdt, bar in ((torch.float32, torch.float32, 1e-5),
+                          (torch.float64, torch.float64, 1e-12),
+                          (torch.bfloat16, torch.float32, 1e-5),
+                          (torch.bfloat16, torch.float64, 1e-12)):
+        for offsets in sets:
+            for n, halo in ((pat.ndof, 0), (20_000, 0),
+                            (4_000, max(map(abs, offsets)))):
+                data = torch.as_tensor(rng.standard_normal(
+                    (len(offsets), n))).to(ddt).cuda()
+                x = torch.as_tensor(rng.standard_normal(
+                    n + 2 * halo)).to(xdt).cuda()
+                ys = {r: tdia.spmv_dia_cuda(offsets, data, x, halo=halo,
+                                            route=r) for r in tdia.ROUTES}
+                torch.cuda.synchronize()
+                launches += 1
+                ref = tdia.spmv_dia_plain(offsets, data, x, halo=halo)
+                err = float(torch.linalg.norm(ys["tiled"] - ref)
+                            / torch.linalg.norm(ref))
+                assert err <= bar, (ddt, xdt, len(offsets), n, halo, err)
+                assert torch.equal(ys["tiled"], ys["rows"])
+    assert tdia.route_launches == {"tiled": launches, "rows": launches}

@@ -389,14 +389,21 @@ def test_gmres_decomp_opt_ins_keep_the_size_schedule(matrix_id, want):
 def test_gmres_decomp_prints_its_lines(capsys):
     """gmres_decomp at matrix 1 on the CPU through the 'sch' prep: a line
     and a finite time for every part of `_prep_operators`, the matvec, the
-    CGS2 projection (four GEMVs and K3's plain version) and the slope."""
+    CGS2 projection (four GEMVs and K3's plain version) and the two fixed
+    solves; the slope is the tool's own difference of those two solves'
+    times over their iteration counts.  Its sign is not checked: it is the
+    difference of two host-clock means, which a loaded CPU can reverse."""
     rows = gmres_decomp.main(["--matrix-id", "1", "--device", "cpu",
                               "--preconditioner", "schur", "--coarse-agg",
                               "4", "--cgs2", "pallas"])
     out = capsys.readouterr().out
     assert "prep=sch" in out
     for name in ("apply_A", "apply_F", "apply_S", "fhat", "shat", "minv",
-                 "matvec = minv(A x)", "per_iteration"):
+                 "matvec = minv(A x)", "gmres_32", "gmres_64"):
         assert name in rows and np.isfinite(rows[name]) and rows[name] > 0
-        assert name in out or name == "per_iteration"
+        assert name in out or name.startswith("gmres_")
+    assert rows["iters_64"] > rows["iters_32"] > 0
+    assert np.isfinite(rows["per_iteration"])
+    assert rows["per_iteration"] == (rows["gmres_64"] - rows["gmres_32"]) \
+        / (rows["iters_64"] - rows["iters_32"])
     assert any("K3" in k for k in rows) and "per-iteration" in out
