@@ -152,7 +152,9 @@ then distribution (ROADMAP slice 15), four shards on the one card:
      shard timed flushed and L2-warm (both K2 routes in turns) beside its
      plain version, cuSPARSE CSR on the shard's rows with their ghost
      columns, the shard's bound and the whole-matrix launch; the stored
-     ghost width, the route and the plan printed;
+     ghost width, the route, K1's plan and copies per tile (one tensor
+     copy per node offset) printed, and K1's host us per launch of both
+     routes in turns;
  (i) `parallel.dryrun.dryrun_multichip(4, cuda:0)` (one f32 step, K1's
      ghost-row form) and `dryrun_wide(4, cuda:0)` (matrix 4 in f64: one
      step from one shared Stokes state against one device, rel < 1e-8,
@@ -2397,9 +2399,12 @@ def halo_k1_phase(dev, mesh, pat, data64, flush) -> dict:
     """(h), K1: matrix 6 cut into 4 and 8 shards, every shard's ghost-row
     launch against the rows of one launch on the whole vector (bit for bit,
     each route where both fit) and its plain version (within the bars of
-    phase 3), also on random data with nonzero ghost rows; one interior
-    shard timed beside its plain version, cuSPARSE on the shard's rows with
-    their ghost columns, its bound and the whole-matrix launch."""
+    phase 3), also on random data and x, so with nonzero ghost rows (every
+    shard against the whole-vector launch bit for bit, one shard against
+    the plain version); one interior shard timed beside its plain version,
+    cuSPARSE on the shard's rows with their ghost columns, its bound and
+    the whole-matrix launch, its tile plan, its tensor and window copies
+    per tile, and the host us per launch of both routes in turns."""
     noffs = pd.node_offsets_from_scalar(pat.offsets)
     nb, n_d = mesh.nv, len(noffs)
     sel3 = [iD * 4 + b for iD in range(n_d) for b in range(3)]
@@ -2452,12 +2457,28 @@ def halo_k1_phase(dev, mesh, pat, data64, flush) -> dict:
                 if rel > bar:
                     raise AssertionError(f"{label} {route}: rel {rel:.3e}")
                 errs[route] = (rel, float((got - ref).abs().max()))
-            # random data and ghost rows (nonzero everywhere)
-            rp = torch.randn(shards[1].shape, dtype=dtype, device=dev)
-            rw = torch.randn(windows[1].shape, dtype=dtype, device=dev)
+            # random data and x, so ghost rows nonzero everywhere: every
+            # shard against the whole-vector launch, one against plain
+            rdata = torch.randn(planes.shape, dtype=dtype, device=dev)
+            rx = torch.randn((n_in, nbp), dtype=dtype, device=dev)
+            rshards = tpart.split_rows(rdata, Lb, [dev] * P).parts
+            rwins = [w.reshape(-1).contiguous() for w in tpart.exchange(
+                tpart.split_rows(rx, Lb, [dev] * P).parts, g)]
+            rp, rw = rshards[1], rwins[1]
             rref = pd.spmv_planes_plain(noffs, rp, rw, n_in=n_in, nb=Lb,
                                         halo=g)
             for route in routes:
+                rwhole = pd.spmv_planes_cuda(noffs, rdata, rx.reshape(-1),
+                                             n_in=n_in, nb=nb, route=route)
+                rgot = [pd.spmv_planes_cuda(noffs, p, w, n_in=n_in, nb=n,
+                                            route=route, halo=g)
+                        for p, w, n in zip(rshards, rwins, live)]
+                if not torch.equal(torch.cat(
+                        [y.reshape(-1, Lb) for y in rgot], dim=1),
+                        rwhole.reshape(-1, nbp)):
+                    raise AssertionError(f"{label} random {route}: shard "
+                                         "rows differ from the whole-vector "
+                                         "launch")
                 ry = pd.spmv_planes_cuda(noffs, rp, rw, n_in=n_in, nb=Lb,
                                          route=route, halo=g)
                 rel = float(torch.linalg.norm(ry - rref)
@@ -2486,9 +2507,15 @@ def halo_k1_phase(dev, mesh, pat, data64, flush) -> dict:
                 itemsize * (p1.numel() + w1.numel() + n_out * Lb),
                 2 * p1.numel(), dtype)
             plan = pd.tiled_plan(noffs, p1, w1, n_in, halo=g)
-            plan_txt = "no tiled plan" if plan is None else (
-                f"tile {plan.tn}, {plan.n_tiles} tiles, {plan.stages} "
-                f"stages, {plan.smem_bytes} B shared")
+            plan_txt = "no tiled plan"
+            if plan is not None:
+                ops, win = pd.tile_copies(plan, n_d, n_out, n_in)
+                plan_txt = (f"{pd.plan_text(plan)}; copies per tile: {ops} "
+                            f"{'tensor' if plan.tensor else 'bulk'} "
+                            f"(operator) + {win} bulk (x window)")
+            host = host_us_per_launch(lambda route: pd.spmv_planes_cuda(
+                noffs, p1, w1, n_in=n_in, nb=n1, route=route, halo=g))
+            t["host_us"] = {r: statistics.mean(us) for r, us in host.items()}
             print(f"{label}: Lb={Lb} nodes per shard, stored ghost width "
                   f"g={g} (node halo {max(map(abs, noffs))}), route {chosen} "
                   f"({plan_txt}); shard rows equal the whole-vector launch "
@@ -2499,8 +2526,11 @@ def halo_k1_phase(dev, mesh, pat, data64, flush) -> dict:
                   f"{t['p']:.4f} ms | cuSPARSE on the shard "
                   f"{t['lib_flush']:.4f} / {t['lib']:.4f} ms | bound "
                   f"{t['bound']:.4f} ms ({t['bound_by']}) | whole matrix, "
-                  f"one launch: {whole_ms[0]:.4f} / {whole_ms[1]:.4f} ms",
-                  flush=True)
+                  f"one launch: {whole_ms[0]:.4f} / {whole_ms[1]:.4f} ms | "
+                  "a launch costs the host, in turns of 2,000 launches "
+                  "with no sync, " + ", ".join(
+                      f"{r} {'/'.join(f'{u:.1f}' for u in us)} us"
+                      for r, us in host.items()), flush=True)
             summary[(P, form, dtype)] = (errs[chosen][1], t)
     return summary
 

@@ -6,16 +6,22 @@
 // of the operator each SM has in flight: at ~0.6-0.8 us of memory latency
 // the card needs 15-20 KB per SM to keep 3.35 TB/s busy.  A thread that
 // loads its own values has a handful of 4-byte loads in flight.  Here the
-// lanes of a producer warp ask the copy engine for whole row segments
-// instead (`cp.async.bulk`, the 1-D bulk copy of the Tensor Memory
-// Accelerator).  A stage of the ring is sized in bytes, not in offsets: it
-// holds the row segments of G consecutive node offsets of one row tile
-// (n_out * n_in segments each), G chosen by the wrapper's plan so that a
-// stage is about 16 KB whatever the form, from one offset of a 4x4
+// lanes of a producer warp ask the Tensor Memory Accelerator for whole row
+// segments instead.  A stage of the ring is sized in bytes, not in
+// offsets: it holds the row segments of G consecutive node offsets of one
+// row tile (n_out * n_in segments each), G chosen by the wrapper's plan so
+// that a stage is about 16 KB whatever the form, from one offset of a 4x4
 // operator to 8 offsets of a 1x1 one; `stages` of them are in flight per
 // SM while the consumer warps multiply from shared memory, G * n_out * n_in
 // multiply-adds per row for each barrier round trip.  Each stage completes
 // on an `mbarrier` that counts the bytes that have landed.
+//
+// A stage comes by one of two kinds of copy, which land the same layout;
+// the plan picks one by the tile's rows (ops/band_ring.py tensor_copies):
+// one bulk copy (`cp.async.bulk`, 1-D) per row segment, or one tensor copy
+// (`cp.async.bulk.tensor.3d` over a CUtensorMap the launcher encodes) per
+// node offset, whose n_out * n_in segments are one box of the operator
+// seen as the 3-D tensor (rows, terms, output planes).
 //
 // The x window of a row tile is made of segments, one per cluster of node
 // offsets (a new cluster wherever the gap to the next offset exceeds the
@@ -48,19 +54,29 @@
 // ask for the next tile's window while the consumers still read this one's,
 // and the ring runs on across the tile change.
 //
-// Bulk copies need 16-byte aligned source, destination and size; the
-// wrapper routes operators whose rows do not start on such a boundary to
-// the row-per-thread kernel.
+// Bulk copies need 16-byte aligned source, destination and size, tensor
+// copies a 16-byte aligned tensor, row stride and box row, and a
+// destination on kBoxAlign bytes (a tile of whole warps gives that); the
+// wrapper routes operators whose rows do not start on 16 bytes to the
+// row-per-thread kernel.
 //
 // What bounds the ring itself, measured on an H100 (PERF.md): the copy
 // engine of an SM spends ~37 ns on a bulk copy of up to ~1 KB whatever its
 // size, and moves ~30 GB/s on larger ones, which over 132 SMs is the rate
 // of the L2; so the plan prefers tiles of up to 512 rows (2 KB segments in
-// f32).  The same ring built from per-thread `cp.async` 16-byte copies,
-// with one __syncthreads() per stage, was slower at every shape tried.
+// f32).  A tensor copy costs no less than a bulk copy of its bytes (a 1x1
+// form's offset, one segment either way, took 1-7% longer by tensor copy;
+// a 4x4 tile of 224 rows, one 14 KB box against 16 segments of 896 bytes,
+// 0-4% longer flushed), so it pays only where it replaces short copies:
+// a shard's 4x4 tile of 64 rows, one 4 KB box against 16 segments of 256
+// bytes, takes 25% less time.  One box for a whole stage of G offsets was
+// slower than one box per offset.  The same ring built from per-thread
+// `cp.async` 16-byte copies, with one __syncthreads() per stage, was
+// slower at every shape tried.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -73,6 +89,8 @@ constexpr int kMaxClusters = 8;        // x window segments of a tile
 constexpr int kProducerThreads = 32;   // one warp; its lanes start the copies
 constexpr int kHeaderBytes = 512;      // mbarriers, window layout: ring follows
 constexpr int kSmemLimit = 232448;     // dynamic shared memory of one block
+constexpr int kMaxBox = 256;           // a tensor copy's box: values per dim
+constexpr int kBoxAlign = 128;         // bytes: a tensor copy's destination
 constexpr long long kWaitCycles = 4000000000LL;  // ~2 s: then trap
 
 template <typename T>
@@ -163,6 +181,29 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// One tensor copy global -> shared of the box at (c0, c1, c2) of the 3-D
+// tensor `map` describes (innermost coordinate first), landing as
+// [c2][c1][c0] at `dst` (kBoxAlign bytes aligned).  The part of the box
+// outside the tensor lands as zeros, and the whole box's bytes count on
+// `bar`.  `map` is a __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tensor_load_3d(void* dst,
+                                               const CUtensorMap* map, int c0,
+                                               int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Fetch the tensor map ahead of the first copy that reads it.
+__device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // Wait until the barrier has completed its phase of parity `parity`.

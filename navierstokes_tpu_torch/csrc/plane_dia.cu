@@ -33,10 +33,14 @@
 //     [0, nbp): this replaces a mask per load, and keeps the rule that DIA
 //     data may be nonzero where i + D leaves the matrix.
 //     The operator goes through the ring: one stage is the n_out*n_in row
-//     segments of G consecutive node offsets, each a bulk copy, G chosen by
-//     the plan so that a stage is about 16 KB (one offset of a 4x4 tile of
-//     224 rows, 8 offsets of a 1x1 tile of 512); a plan of one offset a
-//     stage runs an instance compiled for G = 1.
+//     segments of G consecutive node offsets, G chosen by the plan so that
+//     a stage is about 16 KB (one offset of a 4x4 tile of 224 rows, 8
+//     offsets of a 1x1 tile of 512); a plan of one offset a stage runs an
+//     instance compiled for G = 1.  The segments come by a bulk copy each,
+//     or, on tiles of short rows (a shard's 64 rows: 256-byte segments,
+//     where the copy engine's cost per copy and not the bytes had set the
+//     time), by one tensor copy per node offset: the plan picks the copy
+//     (ops/band_ring.py tensor_copies), the launcher encodes the tensor map.
 //   * the row-per-thread route (plane_spmv_rows_*), the port's first kernel:
 //     one thread per node row, the n_out accumulators in registers, loads of
 //     data[a, j, i] coalesced along i, x masked per load.  It has about 7
@@ -61,6 +65,7 @@
 // Accumulation is in float for f32 data and in double for f64 data
 // (promote(dtype, f32), as in the TPU kernel).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -212,11 +217,16 @@ int launch_rows(const void* data, const void* x, void* y, int n_out, int n_in,
 // of win.plane values].  Threads:
 // tn consumers (row i0 + r each), then the producer warp.  Slot segment
 // (k * NOUT + a) * NIN + b holds data[a, (d0 + k) * NIN + b, i0:i0 + tn].
+// With `tensor`, node offset d0 + k's segments are the box (tn, NIN, NOUT)
+// of `op`, the map of data as the 3-D tensor (nbp, NIN * N_D, NOUT)
+// (innermost first), at (i0, (d0 + k) * NIN, 0): it lands as [a][b][row],
+// that same layout, with zeros for the rows past nbp.
 template <typename T, int NOUT, int NIN, int kGroup>
 __global__ void __launch_bounds__(kMaxTile + band_ring::kProducerThreads, 1)
-plane_spmv_tiled_kernel(const T* __restrict__ data, const T* __restrict__ x,
+plane_spmv_tiled_kernel(const __grid_constant__ CUtensorMap op,
+                        const T* __restrict__ data, const T* __restrict__ x,
                         T* __restrict__ y, int nb, int nbp, int ghost, int tn,
-                        int group, int stages, TiledLayout lay) {
+                        int group, int stages, bool tensor, TiledLayout lay) {
   using A = typename Accum<T>::type;
   constexpr int kSegs = NOUT * NIN;   // row segments of one node offset
   extern __shared__ __align__(128) unsigned char smem[];
@@ -262,33 +272,51 @@ plane_spmv_tiled_kernel(const T* __restrict__ data, const T* __restrict__ x,
     const size_t first =
         ((size_t)((lane / NIN) % NOUT) * nt +
          (size_t)(lane / kSegs) * NIN + lane % NIN) * nbp;
+    if (tensor && lane == 0) {
+      band_ring::prefetch_tensor_map(&op);
+      // Tensor copies land on kBoxAlign bytes only if the block's shared
+      // memory starts on them (the slots then do: tn is whole warps).
+      if (band_ring::smem_addr(ring) % band_ring::kBoxAlign != 0) __trap();
+    }
     band_ring::Cursor cur{0, 1};
     for (int m = 0; m < my_tiles; ++m) {
       const int i0 = ((int)blockIdx.x + m * (int)gridDim.x) * tn;
-      const uint32_t bytes = (uint32_t)(min(tn, nbp - i0) * sizeof(T));
+      // A bulk copy brings the rows up to nbp; a tensor copy its whole box,
+      // the rows past nbp as zeros, and counts all of them.
+      const uint32_t bytes =
+          (uint32_t)((tensor ? tn : min(tn, nbp - i0)) * sizeof(T));
       const band_ring::WindowUse win(m, my_tiles);
       band_ring::wait(bars->window_empty + win.buffer, win.parity ^ 1);
       band_ring::load_window(xw + win.buffer * NIN * plane, x + ghost, NIN,
                              nbp + 2 * ghost, -ghost, nbp + ghost, i0,
                              *win_s, bars->window_full + win.buffer);
       for (int d0 = 0; d0 < n_d; d0 += group) {
-        const int copies = (kGroup ? kGroup : min(group, n_d - d0)) * kSegs;
+        const int g = kGroup ? kGroup : min(group, n_d - d0);
+        const int copies = g * kSegs;   // row segments of the stage
         band_ring::wait(bars->empty + cur.slot, cur.parity);
         uint64_t* full = bars->full + cur.slot;
         if (lane == 0) band_ring::expect_bytes(full, copies * bytes);
         __syncwarp();
         T* slot = ring + (size_t)cur.slot * slot_values;
-        const T* src = data + (size_t)d0 * NIN * nbp + i0;
-        if (lane < copies) {
-          band_ring::bulk_load(slot + (size_t)lane * tn, src + first, bytes,
-                               full);
-        }
-        for (int c = lane + 32; c < copies; c += 32) {
-          const int k = c / kSegs, a = (c / NIN) % NOUT, b = c % NIN;
-          band_ring::bulk_load(
-              slot + (size_t)c * tn,
-              src + ((size_t)a * nt + (size_t)k * NIN + b) * nbp, bytes,
-              full);
+        if (tensor) {
+          // lane k: node offset d0 + k's box
+          for (int k = lane; k < g; k += 32) {
+            band_ring::tensor_load_3d(slot + (size_t)k * kSegs * tn, &op, i0,
+                                      (d0 + k) * NIN, 0, full);
+          }
+        } else {
+          const T* src = data + (size_t)d0 * NIN * nbp + i0;
+          if (lane < copies) {
+            band_ring::bulk_load(slot + (size_t)lane * tn, src + first,
+                                 bytes, full);
+          }
+          for (int c = lane + 32; c < copies; c += 32) {
+            const int k = c / kSegs, a = (c / NIN) % NOUT, b = c % NIN;
+            band_ring::bulk_load(
+                slot + (size_t)c * tn,
+                src + ((size_t)a * nt + (size_t)k * NIN + b) * nbp, bytes,
+                full);
+          }
         }
         cur.advance(stages);
       }
@@ -368,12 +396,71 @@ bool window_layout(const int* offsets, int n_d, const int* clusters, int n_c,
   return true;
 }
 
-// What a tiled launch needs beside the tensors.
+// What a tiled launch needs beside the tensors: `op` is the operator's
+// tensor map where the plan copies by tensor, else unused.
 struct TiledLaunch {
   int nb, nbp, ghost, tn, group, stages, grid;
+  bool tensor;
   size_t smem;
   cudaStream_t stream;
+  CUtensorMap op;
 };
+
+// cuTensorMapEncodeTiled, a function of libcuda, reached through the
+// runtime's entry point query so that this library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return rc == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Returned for a tensor map that does not encode: kEncodeError + the
+// CUresult (ops/plane_dia.py ENCODE_ERROR).
+constexpr int kEncodeError = 10000;
+
+// The map of data (n_out, nt = n_in * N_D, nbp) as a 3-D tensor, innermost
+// first, in boxes of (tn, n_in, n_out) values: 0 where it encodes.  The
+// L2 promotion made no difference in turns (none, 128 B, 256 B; PERF.md).
+template <typename T>
+int encode_operator(CUtensorMap* map, const void* data, int n_out, int nt,
+                    int nbp, int tn, int n_in) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeError + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)nbp, (cuuint64_t)nt,
+                              (cuuint64_t)n_out};
+  const cuuint64_t strides[2] = {(cuuint64_t)nbp * sizeof(T),
+                                 (cuuint64_t)nt * nbp * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)tn, (cuuint32_t)n_in,
+                             (cuuint32_t)n_out};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map,
+      sizeof(T) == 8 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT64
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(data), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kEncodeError + (int)rc;
+}
 
 template <typename T, int NOUT, int NIN, int kGroup>
 int launch_tiled_group(const T* data, const T* x, T* y, const TiledLaunch& l,
@@ -383,7 +470,8 @@ int launch_tiled_group(const T* data, const T* x, T* y, const TiledLaunch& l,
   const cudaError_t rc = band_ring::allow_full_smem(kernel, allowed);
   if (rc != cudaSuccess) return (int)rc;
   kernel<<<l.grid, l.tn + band_ring::kProducerThreads, l.smem, l.stream>>>(
-      data, x, y, l.nb, l.nbp, l.ghost, l.tn, l.group, l.stages, lay);
+      l.op, data, x, y, l.nb, l.nbp, l.ghost, l.tn, l.group, l.stages,
+      l.tensor, lay);
   return (int)cudaGetLastError();
 }
 
@@ -410,16 +498,17 @@ int launch_tiled_nout(int n_in, const T* data, const T* x, T* y,
   }
 }
 
-// The clusters, `tn`, `group`, `stages` and `grid` are the wrapper's tile
-// plan (ops/plane_dia.py tile_plan); what the plan must satisfy is checked
-// again here.
+// The clusters, `tn`, `group`, `stages`, `grid` and `tensor` are the
+// wrapper's tile plan (ops/plane_dia.py tile_plan); what the plan must
+// satisfy is checked again here.
 template <typename T>
 int launch_tiled(const void* data, const void* x, void* y, int n_out, int n_in,
                  int n_d, int nb, int nbp, int ghost, const int* offsets,
                  int n_c, const int* clusters, int tn, int group, int stages,
-                 int grid, void* stream) {
+                 int grid, int tensor, void* stream) {
   if (bad_shape(n_out, n_in, n_d, nb, nbp, ghost, offsets) || tn < 32 ||
       tn > kMaxTile || tn % 32 != 0 || group < 1 || group > n_d ||
+      (tensor && tn > band_ring::kMaxBox) ||
       stages < 1 || stages > band_ring::kMaxStages || grid < 1 ||
       grid > (nbp + tn - 1) / tn ||
       ((size_t)nbp * sizeof(T)) % 16 != 0 ||
@@ -441,9 +530,14 @@ int launch_tiled(const void* data, const void* x, void* y, int n_out, int n_in,
           (long long)sizeof(T);
   if (smem > band_ring::kSmemLimit) return (int)cudaErrorInvalidValue;
 
-  const TiledLaunch l{nb,   nbp,  ghost,        tn,
-                      group, stages, grid,      (size_t)smem,
-                      static_cast<cudaStream_t>(stream)};
+  TiledLaunch l{nb,     nbp,    ghost, tn,
+                group,  stages, grid,  tensor != 0,
+                (size_t)smem, static_cast<cudaStream_t>(stream), {}};
+  if (l.tensor) {
+    const int encoded =
+        encode_operator<T>(&l.op, data, n_out, n_in * n_d, nbp, tn, n_in);
+    if (encoded != 0) return encoded;
+  }
   const T* d = static_cast<const T*>(data);
   const T* xv = static_cast<const T*>(x);
   T* yv = static_cast<T*>(y);
@@ -480,10 +574,10 @@ extern "C" int plane_spmv_tiled_f32(const void* data, const void* x, void* y,
                                     int nbp, int ghost, const int* offsets,
                                     int n_c, const int* clusters, int tn,
                                     int group, int stages, int grid,
-                                    void* stream) {
+                                    int tensor, void* stream) {
   return launch_tiled<float>(data, x, y, n_out, n_in, n_d, nb, nbp, ghost,
                              offsets, n_c, clusters, tn, group, stages,
-                             grid, stream);
+                             grid, tensor, stream);
 }
 
 extern "C" int plane_spmv_tiled_f64(const void* data, const void* x, void* y,
@@ -491,8 +585,8 @@ extern "C" int plane_spmv_tiled_f64(const void* data, const void* x, void* y,
                                     int nbp, int ghost, const int* offsets,
                                     int n_c, const int* clusters, int tn,
                                     int group, int stages, int grid,
-                                    void* stream) {
+                                    int tensor, void* stream) {
   return launch_tiled<double>(data, x, y, n_out, n_in, n_d, nb, nbp, ghost,
                               offsets, n_c, clusters, tn, group, stages,
-                              grid, stream);
+                              grid, tensor, stream);
 }

@@ -93,9 +93,11 @@ def save_bcsr_npz(path: str, m: BCSR4) -> None:
 
 
 def load_bcsr_npz(path: str, dtype: torch.dtype = None,
-                  device="cpu") -> BCSR4:
+                  device="cuda") -> BCSR4:
     """Binary matrix load, the `MatLoad` analog (`src/main.c:58-68`): the
-    values in `dtype` (as stored where None) on `device`."""
+    values in `dtype` (as stored where None) on `device`, the card unless
+    the caller asks for another (the JAX package's loads onto its default
+    device)."""
     with np.load(path) as d:
         values = torch.as_tensor(d["values"], device=device)
         if dtype is not None:

@@ -22,6 +22,9 @@ MAX_CLUSTERS = 8        # kMaxClusters: x window segments of a tile
 SLOT_BYTES = 16 * 1024  # what a stage aims at: enough bytes per round trip
 MIN_STAGES = 2          # fewer leaves nothing in flight while a stage is used
 COPY_ALIGN = 16         # bytes: source, destination and size of a bulk copy
+MAX_BOX = 256           # kMaxBox: a tensor copy's box, values per dimension
+BOX_ALIGN = 128         # kBoxAlign: bytes, a tensor copy's destination
+TENSOR_ROW_BYTES = 512  # a tile's row segments up to this: tensor copies
 WARP = 32
 
 
@@ -43,6 +46,53 @@ def wave_tile(n: int, n_sm: int, max_tile: int) -> int:
         if tile <= max_tile and (best is None or busiest < best[0]):
             best = (busiest, tile)
     return best[1]
+
+
+def tensor_copies(tn: int, itemsize: int) -> bool:
+    """Whether a plan's stages come by tensor copies, one per node offset
+    (the box of its n_out * n_in row segments), and not by one bulk copy
+    per row segment: where a row segment of the tile is at most
+    TENSOR_ROW_BYTES.  Measured in turns on an H100 (PERF.md §6): a
+    matrix-6 shard's 4x4 and 3x3 tiles of 64 and 32 rows (segments of 128
+    to 512 bytes) take 6-33% less time flushed by tensor copies, because
+    the copy engine spends about as long on a short copy as on a long one;
+    the whole-vector forms' tiles of 224-512 rows (896 bytes and more) take
+    up to 7% more, and the 1x1 forms, whose offset is one segment, gain
+    nothing from a box."""
+    return tn * itemsize <= TENSOR_ROW_BYTES
+
+
+def stage_tx_bytes(offsets: int, tn: int, i0: int, nbp: int, n_out: int,
+                   n_in: int, itemsize: int, tensor: bool) -> int:
+    """The bytes a stage of `offsets` node offsets announces on its full
+    barrier for the tile at row i0: a bulk copy brings each segment's rows
+    up to nbp, a tensor copy its whole box, whose rows past nbp land as
+    zeros and count."""
+    rows = tn if tensor else min(tn, nbp - i0)
+    return offsets * n_out * n_in * rows * itemsize
+
+
+def box_checks(tn: int, n_out: int, n_in: int, nbp: int, group: int,
+               stages: int, itemsize: int) -> list:
+    """What the kernel's tensor copies rely on that a tile plan must give,
+    as a list of the failures (empty where all hold): every box dimension
+    at most MAX_BOX; the box's rows and the operator's row stride whole
+    16-byte units; every box of every slot landing on BOX_ALIGN bytes
+    after the header.  A box, innermost first, is (tn, n_in, n_out) of the
+    operator seen as the 3-D tensor (nbp, n_in * N_D, n_out): one node
+    offset's row segments."""
+    failed = []
+    dims = (tn, n_in, n_out)
+    if max(dims) > MAX_BOX:
+        failed.append(f"box {dims} over {MAX_BOX}")
+    if (tn * itemsize) % COPY_ALIGN or (nbp * itemsize) % COPY_ALIGN:
+        failed.append("box rows or row stride not whole 16-byte units")
+    box = n_out * n_in * tn * itemsize
+    for at in (HEADER_BYTES + (s * group + k) * box
+               for s in range(stages) for k in range(group)):
+        if at % BOX_ALIGN:
+            failed.append(f"box at byte {at}")
+    return failed
 
 
 def ring_stages(slot_bytes: int, window_bytes: int) -> int:

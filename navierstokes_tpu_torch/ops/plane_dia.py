@@ -14,9 +14,11 @@ PyTorch version `spmv_planes_plain` for tensors on the CPU.
 
 K1 has two routes that compute the same function (`plane_route` picks one
 by the operator's shape and alignment alone): 'tiled', which streams the
-operator through a shared-memory ring of bulk copies, tile by tile, with
-the x window of a tile in shared memory; and 'rows', one thread per node
-row, which takes every shape.
+operator through a shared-memory ring, tile by tile, by bulk copies of its
+row segments or, on tiles of short rows, by one tensor copy per node
+offset (the C launcher encodes the operator's tensor map), with the x
+window of a tile in shared memory; and 'rows', one thread per node row,
+which takes every shape.
 
 The ghost-row form (`halo=g > 0`, the JAX package's `x_prehalo=True`):
 each plane of x holds nbp + 2g values, x_b[g + j] for j in [-g, nbp + g),
@@ -39,6 +41,7 @@ from navierstokes_tpu_torch.ops import band_ring, cuda_lib
 PAD = 128   # nbp granularity: whole 128-thread kernel blocks, aligned rows
 MAX_OFFSETS = 128         # kMaxOffsets of csrc/plane_dia.cu
 MAX_TILE = 512            # kMaxTile: rows of a tile, one consumer thread each
+ENCODE_ERROR = 10_000     # kEncodeError: + the CUresult of a failed encode
 ROUTES = ("tiled", "rows")
 
 # Plain integer counters: K1 launches (all, by route, those of the ghost-row
@@ -198,7 +201,8 @@ class TilePlan(NamedTuple):
     x window buffers (two where a block walks several tiles) of `window`
     values per input plane in the segments `clusters` ((lo, hi) node
     offsets, `band_ring.window_clusters`), `smem_bytes` of dynamic shared
-    memory."""
+    memory; `tensor`: the stages come by one tensor copy per node offset,
+    else by one bulk copy per row segment (`band_ring.tensor_copies`)."""
 
     tn: int
     n_tiles: int
@@ -209,6 +213,17 @@ class TilePlan(NamedTuple):
     window: int
     windows: int
     smem_bytes: int
+    tensor: bool
+
+
+def tile_copies(plan: TilePlan, n_offsets: int, n_out: int,
+                n_in: int) -> tuple:
+    """(operator, window): the copies the producer starts for one tile of
+    the plan, of the operator (one tensor copy per node offset, or one
+    bulk copy per row segment) and of the x window (at most one bulk copy
+    per input plane and segment)."""
+    per_offset = 1 if plan.tensor else n_out * n_in
+    return n_offsets * per_offset, n_in * len(plan.clusters)
 
 
 def plan_text(plan: TilePlan) -> str:
@@ -234,8 +249,12 @@ def tile_plan(node_offsets: tuple, n_out: int, n_in: int, nbp: int,
     for each cluster (lo, hi), x_b[t * tn + lo .. t * tn + tn + hi), zero
     outside [0, nbp), the clusters split where offsets are more than tn
     apart.  A stage carries `stage_group` node offsets, about
-    `band_ring.SLOT_BYTES`.  Cached: a solver loop asks for the same plan
-    at every launch."""
+    `band_ring.SLOT_BYTES`.  The stages come by one tensor copy per node
+    offset where a row segment of the tile is at most
+    `band_ring.TENSOR_ROW_BYTES` (a shard's tiles of 32 and 64 rows), else
+    by one bulk copy per row segment: the rule `band_ring.tensor_copies`
+    measured in turns.  Cached: a solver loop asks for the same plan at
+    every launch."""
     if (nbp * itemsize) % band_ring.COPY_ALIGN \
             or (halo * itemsize) % band_ring.COPY_ALIGN:
         return None
@@ -260,7 +279,8 @@ def tile_plan(node_offsets: tuple, n_out: int, n_in: int, nbp: int,
         return TilePlan(tn, n_tiles, grid, group, stages, clusters,
                         window, windows,
                         band_ring.smem_bytes(stages, slot_bytes,
-                                             window_bytes))
+                                             window_bytes),
+                        band_ring.tensor_copies(tn, itemsize))
     return None
 
 
@@ -305,7 +325,7 @@ def _kernel_fn(route: str, dtype: torch.dtype):
     lib, _ = cuda_lib.load("plane_dia")
     fn = getattr(lib, _C_FUNCS[route, dtype])
     plan_args = ([ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-                 + [ctypes.c_int] * 4 if route == "tiled" else [])
+                 + [ctypes.c_int] * 5 if route == "tiled" else [])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -349,7 +369,7 @@ def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
     plan_args = () if plan is None else (
         len(plan.clusters),
         band_ring.c_int_array(sum(plan.clusters, ())),
-        plan.tn, plan.group, plan.stages, plan.grid)
+        plan.tn, plan.group, plan.stages, plan.grid, int(plan.tensor))
     fn = _kernel_fn(route, data.dtype)
     y = torch.empty((n_out * nbp,), dtype=x.dtype, device=x.device)
     offs = band_ring.c_int_array(node_offsets)
@@ -357,6 +377,9 @@ def spmv_planes_cuda(node_offsets: tuple, data: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(data.data_ptr(), x.data_ptr(), y.data_ptr(), n_out, n_in,
                 len(node_offsets), nb, nbp, halo, offs, *plan_args, stream)
+    if rc >= ENCODE_ERROR:
+        raise RuntimeError(f"K1's tensor map of the operator did not encode "
+                           f"({route}): CUresult {rc - ENCODE_ERROR}")
     if rc != 0:
         raise RuntimeError(f"K1 launch failed ({route}): cudaError {rc}")
     kernel_launches += 1

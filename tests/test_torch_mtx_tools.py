@@ -78,7 +78,7 @@ def test_create_mat_files_match_jax(created, kind):
 
 def test_create_mat_npz_matches_jax(created):
     jdir, tdir, paths = created
-    t = tmtx.load_bcsr_npz(paths["npz"], torch.float64)
+    t = tmtx.load_bcsr_npz(paths["npz"], torch.float64, device="cpu")
     j = jmtx.load_bcsr_npz(str(jdir / "matrix1_baij4.npz"))
     np.testing.assert_array_equal(t.indptr, j.indptr)
     np.testing.assert_array_equal(t.indices, j.indices)
@@ -95,7 +95,7 @@ def test_writers_are_byte_identical(created, tmp_path):
     through both loaders."""
     _, tdir, _ = created
     j = jmtx.load_bcsr_npz(str(tdir / "matrix1_baij4.npz"))
-    t = tmtx.load_bcsr_npz(str(tdir / "matrix1_baij4.npz"))
+    t = tmtx.load_bcsr_npz(str(tdir / "matrix1_baij4.npz"), device="cpu")
     assert torch.equal(t.values, torch.as_tensor(np.array(j.values)))
     nv = t.nb
     for writer, args in ((("write_mtx"), ()),
@@ -110,7 +110,8 @@ def test_writers_are_byte_identical(created, tmp_path):
         tmtx.write_mtx_by_component(str(tmp_path / "x.mtx"), t, nv + 1)
 
     tmtx.save_bcsr_npz(str(tmp_path / "rt.npz"), t)
-    back_t = tmtx.load_bcsr_npz(str(tmp_path / "rt.npz"), torch.float32)
+    back_t = tmtx.load_bcsr_npz(str(tmp_path / "rt.npz"), torch.float32,
+                                 device="cpu")
     back_j = jmtx.load_bcsr_npz(str(tmp_path / "rt.npz"))
     assert back_t.values.dtype == torch.float32
     np.testing.assert_array_equal(back_t.indices, t.indices)

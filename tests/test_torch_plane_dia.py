@@ -27,6 +27,7 @@ from navierstokes_tpu_torch.mesh.box import (
 )
 from navierstokes_tpu_torch.ops import band_ring, cuda_lib
 from navierstokes_tpu_torch.ops import plane_dia as tpd
+from navierstokes_tpu_torch.parallel import partitioned as tpart
 
 torch.set_num_threads(1)
 
@@ -225,6 +226,46 @@ def test_kernel_matches_plain_on_the_card():
                             / torch.linalg.norm(ref))
                 assert err <= bar, (dtype, n_out, n_in, route, err)
                 assert torch.all(y.reshape(n_out, nbp)[:, nb:] == 0)
+
+
+@pytest.mark.cuda
+def test_shard_rows_equal_the_whole_vector_launch_on_the_card():
+    """The ghost-row form on the card: matrix 6's shape (29,375 nodes, its
+    15 node offsets) in 4 and 8 shards, random data and random x, so the
+    ghost rows are nonzero; every shard's launch, on each route, equals
+    the rows of one whole-vector launch bit for bit, in f32 and f64."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 has no CPU or interpret mode")
+    offs, nb = _node_offsets(24, 24), 29_375
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for P in (4, 8):
+        for dtype in (torch.float32, torch.float64):
+            itemsize = torch.tensor([], dtype=dtype).element_size()
+            Lb = tpart.plane_shard_nodes(nb, offs, P, 48, itemsize)
+            nbp, g = P * Lb, tpd.ghost_width(offs, itemsize)
+            data = torch.randn((4, 4 * len(offs), nbp), generator=gen,
+                               dtype=dtype, device=dev)
+            x = torch.randn((4, nbp), generator=gen, dtype=dtype, device=dev)
+            shards = tpart.split_rows(data, Lb, [dev] * P).parts
+            windows = [w.reshape(-1).contiguous() for w in tpart.exchange(
+                tpart.split_rows(x, Lb, [dev] * P).parts, g)]
+            live = tpart.shard_rows(nb, Lb, P)
+            assert tpd.plane_route(offs, shards[1], windows[1], 4,
+                                   halo=g) == "tiled"
+            ys = []
+            for route in tpd.ROUTES:
+                whole = tpd.spmv_planes_cuda(offs, data, x.reshape(-1),
+                                             n_in=4, nb=nb, route=route)
+                got = torch.cat([tpd.spmv_planes_cuda(
+                    offs, p, w, n_in=4, nb=n, route=route, halo=g
+                ).reshape(4, Lb) for p, w, n in zip(shards, windows, live)],
+                    dim=1)
+                torch.cuda.synchronize()
+                assert torch.equal(got, whole.reshape(4, nbp)), (P, dtype,
+                                                                route)
+                ys.append(got)
+            assert torch.equal(ys[0], ys[1])
 
 
 # ---- what Python decides for the tiled route -------------------------------
@@ -467,18 +508,49 @@ def test_route_rule(case):
         assert shape_plan == plan
 
 
+def _stage_slot(data, plan, d0, g, i0, n_in):
+    """One ring slot as the kernel's copies fill it, for node offsets
+    d0 .. d0 + g - 1 of the tile at i0: segment (k * n_out + a) * n_in + b
+    holds data[a, (d0 + k) * n_in + b, i0:i0 + tn].  By tensor copies
+    (`plan.tensor`) offset k's box (tn, n_in, n_out) at (i0, (d0 + k) *
+    n_in, 0) lands as [a][b][row], zeros past nbp; by bulk copies each
+    segment's rows up to nbp land and the rest stays as it was (NaN here).
+    Checks the bytes the stage announces (`band_ring.stage_tx_bytes`)."""
+    n_out, _, nbp = data.shape
+    size, tn = data.element_size(), plan.tn
+    slot = torch.full((plan.group, n_out, n_in, tn), float("nan"),
+                      dtype=data.dtype)
+    rows = min(tn, nbp - i0)
+    landed = 0
+    for k in range(g):
+        terms = slice((d0 + k) * n_in, (d0 + k + 1) * n_in)
+        if plan.tensor:
+            slot[k] = 0
+        slot[k, :, :, :rows] = data[:, terms, i0:i0 + rows]
+        landed += n_out * n_in * (tn if plan.tensor else rows) * size
+    assert landed == band_ring.stage_tx_bytes(g, tn, i0, nbp, n_out, n_in,
+                                              size, plan.tensor)
+    return slot.reshape(-1)
+
+
 def _tiled_emulation(node_offsets, data, x, n_in, nb, n_sm, halo=0):
     """K1's tiled route in plain torch: the kernel's tiles, its clustered x
     windows (a segment per cluster, exact zeros outside the source's valid
-    range, [0, nbp) or [-halo, nbp + halo) with ghost rows) and its stage
-    order (`group` node offsets a stage, b inner)."""
+    range, [0, nbp) or [-halo, nbp + halo) with ghost rows), its ring slots
+    as its tensor or bulk copies fill them (`_stage_slot`), and its stage
+    order (`group` node offsets a stage, b inner).  The rows of the last
+    tile past nbp are summed too, from what the copies left there, and
+    dropped."""
     n_out, _, nbp = data.shape
     size = data.element_size()
     plan = tpd.tile_plan(node_offsets, n_out, n_in, nbp, size, n_sm, halo)
+    assert not plan.tensor or not band_ring.box_checks(
+        plan.tn, n_out, n_in, nbp, plan.group, plan.stages, size)
     acc_dtype = torch.promote_types(data.dtype, torch.float32)
     where = _segments(node_offsets, plan)
     xs = x.reshape(n_in, nbp + 2 * halo)
     y = torch.full((n_out, nbp), float("nan"), dtype=x.dtype)
+    r = torch.arange(plan.tn)
     for block in range(plan.grid):
         for tile in range(block, plan.n_tiles, plan.grid):
             i0 = tile * plan.tn
@@ -495,16 +567,21 @@ def _tiled_emulation(node_offsets, data, x, n_in, nb, n_sm, halo=0):
                 win[:, at + g0 - base:at + g1 - base] = \
                     xs[:, halo + g0:halo + g1]
                 at += w
-            acc = torch.zeros((n_out, rows), dtype=acc_dtype)
+            acc = torch.zeros((n_out, plan.tn), dtype=acc_dtype)
             for d0 in range(0, len(node_offsets), plan.group):
-                for i_d in range(d0, min(d0 + plan.group,
-                                         len(node_offsets))):
-                    start, end = where[node_offsets[i_d]]
+                g = min(plan.group, len(node_offsets) - d0)
+                slot = _stage_slot(data, plan, d0, g, i0, n_in)
+                for k in range(g):
+                    start, end = where[node_offsets[d0 + k]]
                     assert start + rows <= end
                     for b in range(n_in):
-                        seg = data[:, i_d * n_in + b,
-                                   i0:i0 + rows].to(acc_dtype)
-                        acc += seg * win[b, start:start + rows]
+                        xv = win[b, start + r]
+                        for a in range(n_out):
+                            seg = slot[((k * n_out + a) * n_in + b) * plan.tn
+                                       + r].to(acc_dtype)
+                            acc[a] += seg * xv
+            acc = acc[:, :rows]
+            assert not torch.isnan(acc).any()    # rows < nbp read copies
             acc[:, max(0, nb - i0):] = 0
             assert torch.isnan(y[:, i0:i0 + rows]).all()   # written once
             y[:, i0:i0 + rows] = acc.to(x.dtype)
@@ -600,6 +677,144 @@ def test_tiled_emulation_matches_plain_and_pallas(dtype, bar, n_out, n_in, nb,
         assert np.linalg.norm(got - y_jax) / np.linalg.norm(y_jax) <= 1e-12
 
 
+def _mesh_offsets(matrix_id):
+    """The node offsets of a scaling-series mesh: the differences of node
+    numbers within a tet."""
+    tets = scaling_series_mesh(matrix_id).tets
+    return tuple(int(d) for d in np.unique(tets[:, :, None] - tets[:, None]))
+
+
+_SHARD_CASES = [(m, P) for m in (1, 2) for P in (4, 8)]
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-13)])
+@pytest.mark.parametrize("matrix_id,P", _SHARD_CASES,
+                         ids=[f"m{m}-{P}" for m, P in _SHARD_CASES])
+def test_tiled_emulation_of_shards_matches_plain_and_pallas(matrix_id, P,
+                                                            dtype, bar):
+    """The ghost-row form on a distributed apply's shards (matrices 1 and 2
+    in 4 and 8 shards of `plane_shard_nodes` rows, the exchange's g ghost
+    rows): each shard's tiled emulation, with the ring filled box by box,
+    against the plain version (f32 rel 1e-6, f64 1e-13) and against
+    spmv_planes_pallas in interpret mode with x_prehalo=True on the same
+    numpy inputs (rel 1e-6 in f32, 1e-12 in f64); the shards' rows
+    together equal the emulated whole-vector launch bit for bit (its tiles
+    of 32 rows by tensor copies too).  Data,
+    x and so the ghost rows are random everywhere."""
+    offs = _mesh_offsets(matrix_id)
+    nb = scaling_series_mesh(matrix_id).nv
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    Lb = tpart.plane_shard_nodes(nb, offs, P, 48, itemsize)
+    nbp = P * Lb
+    g = tpd.ghost_width(offs, itemsize)
+    h = max(abs(d) for d in offs)
+    rng = np.random.default_rng(7000 + 10 * matrix_id + P + itemsize)
+    planes = rng.standard_normal((4, 4 * len(offs), nbp))
+    xs = rng.standard_normal((4, nbp))
+    data = torch.as_tensor(planes, dtype=dtype)
+    x = torch.as_tensor(xs, dtype=dtype)
+    devices = ["cpu"] * P
+    shards = tpart.split_rows(data, Lb, devices).parts
+    windows = tpart.exchange(tpart.split_rows(x, Lb, devices).parts, g)
+    live = tpart.shard_rows(nb, Lb, P)
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jbar = 1e-6 if dtype == torch.float32 else 1e-12
+    got = []
+    for p, w, n in zip(shards, windows, live):
+        y, plan = _tiled_emulation(offs, p, w.reshape(-1), 4, n, 132,
+                                   halo=g)
+        assert plan.tn == 32 and plan.tensor
+        got.append(y.reshape(4, Lb))
+        if n == 0:
+            assert torch.all(y == 0)
+            continue
+        ref = tpd.spmv_planes_plain(offs, p, w.reshape(-1), n_in=4, nb=n,
+                                    halo=g)
+        err = float(torch.linalg.norm(y.double() - ref.double())
+                    / torch.linalg.norm(ref.double()))
+        assert err <= bar, err
+        tiled = jpd.pretile_planes(jnp.asarray(p.numpy(), dtype=jdtype), Lb,
+                                   tile=Lb, nbp=Lb)
+        xh = w[:, g - h:g + Lb + h].reshape(-1).numpy()
+        y_jax = np.asarray(jpd.spmv_planes_pallas(
+            offs, tiled, jnp.asarray(xh, dtype=jdtype), n_in=4, nb=n,
+            interpret=True, x_prehalo=True)).reshape(4, Lb)[:, :n]
+        mine = y.reshape(4, Lb)[:, :n].double().numpy()
+        assert np.linalg.norm(mine - y_jax) / np.linalg.norm(y_jax) <= jbar
+    whole, _ = _tiled_emulation(offs, data, x.reshape(-1), 4, nb, 132)
+    assert torch.equal(torch.cat(got, dim=1), whole.reshape(4, nbp))
+
+
+_BOX_CASES = [(nbp, offs, n_sm) for nbp, offs in _SERIES_CASES
+              for n_sm in (132, 5)] + [
+    (7344, M10_15, 132), (7344, SPREAD_OFFS, 132), (3696, M10_15, 132),
+    (384, M10_65, 132), (31_968, M10_15, 132), (73_440, M10_65, 132)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("n_out,n_in", [(4, 4), (3, 3), (1, 3), (1, 1)])
+def test_tile_plans_pick_their_copies(n_out, n_in, itemsize):
+    """Every plan of the series' shapes and of the shards takes tensor
+    copies exactly where a row segment of its tile is at most 512 bytes
+    (`band_ring.tensor_copies`), and there what the kernel's tensor copies
+    rely on holds (`band_ring.box_checks`): boxes of at most 256 values a
+    dimension, 16-byte box rows and row stride, every box of every slot on
+    128 bytes.  A matrix-6 shard's 4x4 and 3x3 tiles (64 rows f32 and
+    f64, 32 rows in 8 shards) take tensor copies, the whole-vector tiles
+    bulk copies; the copies per tile follow."""
+    for nbp, offs, n_sm in _BOX_CASES:
+        plan = tpd.tile_plan(offs, n_out, n_in, nbp, itemsize, n_sm)
+        if plan is None:
+            continue
+        assert plan.tensor == (plan.tn * itemsize <= 512)
+        if plan.tensor:
+            assert band_ring.box_checks(plan.tn, n_out, n_in, nbp,
+                                        plan.group, plan.stages,
+                                        itemsize) == []
+        operator, window = tpd.tile_copies(plan, len(offs), n_out, n_in)
+        assert operator == len(offs) * (1 if plan.tensor else n_out * n_in)
+        assert window == n_in * len(plan.clusters)
+    for nbp, tn in ((7344, 64), (3696, 32)):       # matrix 6, 4 or 8 shards
+        for size in (4, 8):
+            plan = tpd.tile_plan(M10_15, n_out, n_in, nbp, size,
+                                 halo=tpd.ghost_width(M10_15, size))
+            assert plan.tn == tn and plan.tensor
+    assert not tpd.tile_plan(M10_15, n_out, n_in, 29_440, itemsize).tensor
+
+
+def test_box_checks_name_what_fails():
+    """`box_checks` refuses a box of more than 256 rows, rows that are not
+    whole 16-byte units, and boxes off 128 bytes; the plan's shard tiles
+    pass."""
+    assert band_ring.box_checks(64, 4, 4, 7344, 4, 8, 4) == []
+    assert band_ring.box_checks(32, 4, 4, 3696, 8, 8, 4) == []
+    assert band_ring.box_checks(64, 4, 4, 7344, 2, 8, 8) == []
+    assert any("over 256" in f for f in band_ring.box_checks(
+        288, 1, 1, 2688, 1, 2, 4))
+    assert any("16-byte" in f for f in band_ring.box_checks(
+        64, 1, 1, 7345, 1, 2, 4))
+    assert any("16-byte" in f for f in band_ring.box_checks(
+        34, 1, 1, 7344, 1, 2, 4))
+    assert any("byte 576" in f for f in band_ring.box_checks(
+        16, 1, 1, 7344, 2, 2, 4))      # 64-byte boxes: every other one off
+
+
+def test_stage_bytes_count_whole_boxes():
+    """A stage's full barrier expects, by tensor copies, the whole box of
+    every offset: the last tile of a 4-shard matrix-6 shard (7,344 = 114 *
+    64 + 48 rows, 4 node offsets a stage) counts 64 rows a segment, not
+    48; by bulk copies the rows up to nbp."""
+    full = 4 * 16 * 64 * 4
+    assert band_ring.stage_tx_bytes(4, 64, 114 * 64, 7344, 4, 4, 4,
+                                    True) == full
+    assert band_ring.stage_tx_bytes(4, 64, 0, 7344, 4, 4, 4, True) == full
+    assert band_ring.stage_tx_bytes(4, 64, 114 * 64, 7344, 4, 4, 4,
+                                    False) == full // 64 * 48
+    assert band_ring.stage_tx_bytes(3, 64, 114 * 64, 7344, 4, 4, 8,
+                                    True) == 3 * 16 * 64 * 8
+
+
 def test_route_counters_and_cpu_tensors():
     """Launches are counted per route; a CPU tensor never reaches a CUDA
     route, whichever is asked for."""
@@ -637,6 +852,11 @@ def test_constants_match_the_sources():
     assert ring["kHeaderBytes"] == band_ring.HEADER_BYTES
     assert ring["kSmemLimit"] == band_ring.SMEM_LIMIT == 232_448
     assert ring["kProducerThreads"] == band_ring.WARP == 32
+    assert ring["kMaxBox"] == band_ring.MAX_BOX == 256
+    assert ring["kBoxAlign"] == band_ring.BOX_ALIGN == 128
+    assert k1["kEncodeError"] == tpd.ENCODE_ERROR
+    # a tensor-copy tile is one box: its rows within the box limit
+    assert band_ring.TENSOR_ROW_BYTES // 4 <= band_ring.MAX_BOX
     assert k1["kMaxOffsets"] == tpd.MAX_OFFSETS
     assert k1["kMaxTile"] == tpd.MAX_TILE
     assert k1["kThreads"] == tpd.PAD
