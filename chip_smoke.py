@@ -83,7 +83,7 @@ Phases, in order; any failure raises and the script exits non-zero:
  12c. the CLI's I/O at matrix 6: `--msh` on the mesh written by
      write_gmsh (Stokes + 2 steps, physics checks); one 2-step run with
      `--save --vtu --checkpoint --checkpoint-every 2 --profile` (.vtu
-     files, .pvd, the event table), `--resume` from it to step 4, and 4
+     files, .pvd, the span tree), `--resume` from it to step 4, and 4
      steps uninterrupted, whose solution_step0004.dat the resumed run must
      repeat bit for bit;
  13. the Schur tier: `run.main --matrix-id 8` at the float32 defaults
@@ -122,8 +122,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches by form, none with a plain call on the card:
      (a) jacobian='reference' with the element-wise residual at matrix 6
          in float32 on 'tlp' through the solver API, Stokes + 2 steps,
-         every step converged (Newton max_iter 30), assembly / prep / solve
-         seconds per Newton iteration, the gap to the exact-Jacobian
+         every step converged (Newton max_iter 30), the spans of assembly,
+         prep and solve (count and host seconds), the gap to the exact-Jacobian
          steps; one float64 residual, element-wise against operator form,
          at rel <= 1e-12;
      (b) the golden trajectory in reference mode (float64, 'bj', K2) at
@@ -257,6 +257,7 @@ from navierstokes_tpu_torch.sparse.dia import (
     scale_rows_dia,
     zero_rows_dia,
 )
+from navierstokes_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NNZ_M6 = 6_675_376          # scalar nonzeros of matrix 6 (2*nnz/t GF/s)
@@ -1769,10 +1770,10 @@ def cli_io_phase() -> None:
         if files != want or "UnstructuredGrid" not in vtu_head \
                 or not os.path.exists(ck):
             raise AssertionError(f"--vtu/--checkpoint wrote {files}")
-        for event in ("Event", "setup", "stokes_init", "operator_prep",
-                      "time_loop"):
-            if event not in text:
-                raise AssertionError(f"--profile table lacks {event!r}")
+        for span in ("Span", "setup", "stokes_init", "operator_prep",
+                     "time_loop", "gmres.iter", "sync"):
+            if span not in text:
+                raise AssertionError(f"--profile tree lacks {span!r}")
         out_b, text_b = quiet_main(base + ["--steps", "4", "--save-dir",
                                            dirs["b"], "--resume", ck])
         out_c, _ = quiet_main(base + ["--steps", "4", "--save-dir",
@@ -1974,14 +1975,10 @@ def f32_flagship_cfg(**changes) -> NSConfig:
 
 
 def step_lines(label: str, hist) -> None:
-    """Newton and GMRES per step, its ms, and in reference mode each Newton
-    iteration's assembly / preparation / solve seconds."""
+    """Newton and GMRES per step, and its ms."""
     for step, st, sec in hist:
         print(f"{label} step {step}: newton={st.iters} gmres={st.lin_iters} "
               f"converged={st.converged} {sec * 1e3:.1f} ms")
-        for i, (a, p, s) in enumerate(st.seconds):
-            print(f"    Newton iteration {i + 1}: assembly {a:.4f} s, prep "
-                  f"(host coarse inverse) {p:.4f} s, solve {s:.4f} s")
 
 
 def forms_text(forms: dict) -> dict:
@@ -2019,9 +2016,17 @@ def reference_mode_phase(dev, matrix_id: int = 6) -> dict:
     print(f"Stokes: gmres={ref.stokes_result.iters} converged="
           f"{ref.stokes_result.converged} {time.perf_counter() - t0:.3f} s")
     reset_counters()
-    u_ref = ref.run(2, u0=u0, monitor=False)
+    log = profiling.enable()
+    try:
+        u_ref = ref.run(2, u0=u0, monitor=False)
+    finally:
+        profiling.disable()
     counts = counters()
     step_lines("reference", ref.history)
+    spans = log.snapshot()
+    for name in ("newton.jacobian", "newton.prep", "krylov.solve"):
+        n, total, _ = spans[(name, "step")]
+        print(f"    {name}: {n} spans, {total:.4f} s (host clock, no sync)")
     print(f"kernel counts, 2 reference-mode steps: {counts}")
     if not all(st.converged for _, st, _ in ref.history) \
             or counts["K1"] <= 0 or not no_plain_calls(counts):

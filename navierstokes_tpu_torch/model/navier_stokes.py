@@ -40,7 +40,15 @@ smoothed aggregation with coarse_smooth_omega), 'tlp' the linear basis,
 and above `coarse_dense_max` the multilevel coarse level.  The Krylov
 method is GMRES, CG or CA-GMRES (`method`).  Newton and the Krylov
 methods are Python loops over device tensors; the host reads only the
-norms and small matrices it branches on.
+norms and small matrices it branches on, each read through
+`utils/profiling.fetch`.
+
+Spans (`utils/profiling`, off unless enabled): `step`, `newton.check`,
+`krylov.solve`, in reference mode `newton.jacobian` and `newton.prep`; the
+closures of `_prep_operators` as `op.apply`, `pc.apply`, `pc.coarse` and
+`pc.smooth`; set-up as `setup.discretization`, `setup.prepare`,
+`setup.assemble`, `setup.operator` (with `setup.coarse` and
+`setup.cheby_lmax`), `setup.residual_ops` and `stokes`.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from navierstokes_tpu_torch.ops.plane_dia import (
 )
 from navierstokes_tpu_torch.solvers import schur as sch
 from navierstokes_tpu_torch.utils.precision import no_tf32, no_tf32_operators
+from navierstokes_tpu_torch.utils.profiling import fetch, span, spanned, wrap
 from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
@@ -129,9 +138,6 @@ class NewtonStats(NamedTuple):
     res_hist: np.ndarray        # (max_newton,) residual norms (nan-padded)
     du_hist: np.ndarray         # (max_newton,) update norms
     lin_iters: int              # total GMRES iterations across the step
-    # jacobian='reference': host-clock seconds of (assembly, preparation,
-    # solve) per Newton iteration, each part ended by a device sync
-    seconds: tuple = ()
 
 
 @dataclasses.dataclass
@@ -306,9 +312,12 @@ class NavierStokesSolver:
 
         self.dtype = self.cfg.torch_dtype
         self._sc = scalar_type(self.dtype)
-        self.disc = disc if disc is not None else build_discretization(
-            mesh, dtype=self.dtype, device=self.device,
-            ell_slots=self.cfg.ell_slots)
+        if disc is None:
+            with span("setup.discretization"):
+                disc = build_discretization(mesh, dtype=self.dtype,
+                                            device=self.device,
+                                            ell_slots=self.cfg.ell_slots)
+        self.disc = disc
         nb = mesh.nv
         kr = self.cfg.krylov
         self._coarse_space = build_aggregates(nb, kr.coarse_agg)
@@ -347,6 +356,7 @@ class NavierStokesSolver:
 
     # -- assembly and operator preparation -----------------------------------
 
+    @spanned("setup.assemble")
     def _assemble_dia(self, terms, reynolds: float,
                       UL: Optional[torch.Tensor] = None) -> torch.Tensor:
         d = self.disc
@@ -362,27 +372,30 @@ class NavierStokesSolver:
         and Newton-basis shifts) and the residual operators, once."""
         if self._prepared:
             return
-        cfgk = self.cfg.krylov
-        offs = self.disc.dia_pattern.offsets
-        jlin = self._assemble_dia(LINEAR_TERMS, self.cfg.reynolds)
-        prep = None
-        if self._reference:
-            # every Newton iteration adds the convection terms to J_linear
-            self._jlin = jlin
-        else:
-            prep = self._prepare_operator_dia(
-                zero_rows_dia(offs, jlin, self.disc.bc.is_bc))
-            if cfgk.deflation_k:
-                prep = self._build_deflation(prep)
-            if cfgk.method == "ca_gmres" and cfgk.ca_basis == "newton":
-                inner = prep.inner if isinstance(prep, DeflatedPrep) else prep
-                self._ca_shifts = self._build_ca_shifts(
-                    inner, min(cfgk.restart, 16))
-        self._exact_prep = prep
-        if self.cfg.residual == "operator":
-            self._res_A, self._res_M = self._residual_operators(prep, jlin)
+        with span("setup.prepare"):
+            cfgk = self.cfg.krylov
+            offs = self.disc.dia_pattern.offsets
+            jlin = self._assemble_dia(LINEAR_TERMS, self.cfg.reynolds)
+            prep = None
+            if self._reference:
+                # every Newton iteration adds the convection terms to J_linear
+                self._jlin = jlin
+            else:
+                prep = self._prepare_operator_dia(
+                    zero_rows_dia(offs, jlin, self.disc.bc.is_bc))
+                if cfgk.deflation_k:
+                    prep = self._build_deflation(prep)
+                if cfgk.method == "ca_gmres" and cfgk.ca_basis == "newton":
+                    inner = prep.inner if isinstance(prep, DeflatedPrep) \
+                        else prep
+                    self._ca_shifts = self._build_ca_shifts(
+                        inner, min(cfgk.restart, 16))
+            self._exact_prep = prep
+            if self.cfg.residual == "operator":
+                self._res_A, self._res_M = self._residual_operators(prep, jlin)
         self._prepared = True
 
+    @spanned("setup.residual_ops")
     def _residual_operators(self, prep, jlin: torch.Tensor) -> tuple:
         """(A_lin, M/dt) of the operator-form residual, on the layout the
         residual runs on: planes where the solver runs the plane layout,
@@ -423,6 +436,7 @@ class NavierStokesSolver:
         d = self.disc
         d.tets = d.vol = d.grad = d.h = d.dia_elem_map = None
 
+    @spanned("setup.operator")
     def _prepare_operator_dia(self, dia_data: torch.Tensor) -> Prep:
         """BC-applied DIA data -> the prep of the configured kind."""
         cfgk = self.cfg.krylov
@@ -553,6 +567,7 @@ class NavierStokesSolver:
         lap("to the device")
         return prep
 
+    @spanned("setup.coarse")
     def _prepare_coarse(self, offsets: tuple, dia_data: torch.Tensor,
                         inv_diag: torch.Tensor) -> Coarse:
         """The coarse level: the linear basis's dense inverse
@@ -607,6 +622,7 @@ class NavierStokesSolver:
         prep.cheby = (float((a + b) / 2), float((b - a) / 2), int(deg))
         return prep
 
+    @spanned("setup.cheby_lmax")
     def _estimate_smoother_lmax(self, prep, m: int = 20) -> float:
         """max |Ritz value| of G = D^{-1}A from an m-step Arnoldi sweep
         started from the BC value vector (ones if that is zero)."""
@@ -666,10 +682,11 @@ class NavierStokesSolver:
         the degree-`deg` Chebyshev polynomial in G = D^{-1}A over
         [theta - delta, theta + delta] (Adams/Brezina/Hu/Tuminaro 2003)."""
         if not cheby:
-            return apply_Dinv
+            return wrap("pc.smooth")(apply_Dinv)
         theta, delta, deg = cheby
         sigma1 = theta / delta
 
+        @wrap("pc.smooth")
         def smooth(s):
             dk = apply_Dinv(s) * (1.0 / theta)
             x = dk
@@ -702,6 +719,7 @@ class NavierStokesSolver:
                                       prep.nbp, prep.cs)
             d3 = prep.d16.reshape(4, 4, nbp)
 
+            @wrap("op.apply")
             def apply_A(x):
                 return spmv_plane(noffs, p4, x, nb=nb)
 
@@ -722,6 +740,7 @@ class NavierStokesSolver:
         else:
             cs = prep.cs
 
+            @wrap("op.apply")
             def apply_A(x):
                 return self._spmv(prep.offsets, prep.data, x)
 
@@ -733,6 +752,7 @@ class NavierStokesSolver:
 
         om = self.cfg.krylov.coarse_smooth_omega
 
+        @wrap("pc.coarse")
         def coarse(r):
             z = coarse_p0(r)
             if om:
@@ -744,6 +764,7 @@ class NavierStokesSolver:
 
         smooth = self._make_smoother(apply_A, apply_Dinv, prep.cheby)
 
+        @wrap("pc.apply")
         def minv(r):
             # multiplicative two-grid: coarse correction, then smoothing
             z = coarse(r)
@@ -764,6 +785,7 @@ class NavierStokesSolver:
         noffs, nb, nbp, cs = prep.node_offsets, prep.nb, prep.nbp, prep.cs
         d9 = prep.d9.reshape(3, 3, nbp)
 
+        @wrap("op.apply")
         def apply_A(x):
             return spmv_plane(noffs, prep.p4, x, nb=nb)
 
@@ -787,16 +809,25 @@ class NavierStokesSolver:
         smooth_v = self._make_smoother(apply_F, dinv_f, prep.cheby_v)
         smooth_s = self._make_smoother(apply_S, dinv_s, prep.cheby_s)
 
-        def fhat(ru):
+        @wrap("pc.coarse")
+        def coarse_v(ru):
             zc = prep.vc_inv @ sch.restrict_planes_n(cs, ru, nbp, 3)
-            z = sch.prolong_planes_n(cs, zc, nbp, nb, 3)
+            return sch.prolong_planes_n(cs, zc, nbp, nb, 3)
+
+        @wrap("pc.coarse")
+        def coarse_s(rp):
+            zc = prep.sc_inv @ sch.restrict_planes_n(cs, rp, nbp, 1)
+            return sch.prolong_planes_n(cs, zc, nbp, nb, 1)
+
+        def fhat(ru):
+            z = coarse_v(ru)
             return z + smooth_v(ru - apply_F(z))
 
         def shat(rp):
-            zc = prep.sc_inv @ sch.restrict_planes_n(cs, rp, nbp, 1)
-            z = sch.prolong_planes_n(cs, zc, nbp, nb, 1)
+            z = coarse_s(rp)
             return z + smooth_s(rp - apply_S(z))
 
+        @wrap("pc.apply")
         def minv(r):
             r2 = r.reshape(4, nbp)
             zu = fhat(r2[:3].reshape(-1))
@@ -818,9 +849,11 @@ class NavierStokesSolver:
         the order-`neumann_order` series costs one more apply of S."""
         order = self.cfg.krylov.neumann_order
 
+        @wrap("op.apply")
         def apply_S(x):
             return self._spmv(prep.s_offsets, prep.s_data, x)
 
+        @wrap("pc.apply")
         def neumann(r):
             acc = r
             cur = r
@@ -837,6 +870,7 @@ class NavierStokesSolver:
 
         return matvec, b_prep, {"apply_S": apply_S, "neumann": neumann}
 
+    @spanned("krylov.solve")
     @no_tf32
     def _solve_prepared(self, prep: Prep, rhs: torch.Tensor,
                         solver_cfg) -> GMRESResult:
@@ -928,7 +962,7 @@ class NavierStokesSolver:
             w = matvec(x)
             return w - Q.T @ (Q @ w)
 
-        b_norm = sc(torch.linalg.norm(b_eff).item())
+        b_norm = sc(fetch(torch.linalg.norm(b_eff)).item())
         res = gmres(matvec_defl, r0, restart=solver_cfg.restart, rtol=0.0,
                     atol=float(max(sc(solver_cfg.rtol) * b_norm,
                                    sc(solver_cfg.atol))),
@@ -958,6 +992,7 @@ class NavierStokesSolver:
         return zero_rows_dia(self.disc.dia_pattern.offsets, stokes,
                              self.disc.bc.is_bc)
 
+    @spanned("stokes")
     @no_tf32
     def stokes_init(self) -> torch.Tensor:
         """Initial condition from the steady Stokes solve (`:1094-1095`).
@@ -1023,12 +1058,13 @@ class NavierStokesSolver:
         max_newton = nw.max_iter
         residual = self._residual_fn(u_old.to(dtype).contiguous())
 
+        @wrap("newton.check")
         def check(u, delta_u):
             """BC insert + residual + the two norms (one host sync)."""
             u = torch.where(is_bc, bc_value, u)
             F = torch.where(is_bc, zero, residual(u))
-            norms = torch.stack([torch.linalg.norm(F),
-                                 torch.linalg.norm(delta_u)]).cpu().numpy()
+            norms = fetch(torch.stack([torch.linalg.norm(F),
+                                       torch.linalg.norm(delta_u)])).numpy()
             return u, F, norms[0], norms[1]
 
         rtol, atol = sc(nw.rtol), sc(nw.atol)
@@ -1042,23 +1078,16 @@ class NavierStokesSolver:
         du_h = np.full(max_newton, np.nan, dtype=sc)
         res_h[0], du_h[0] = rn0, dun0
         it, lin_total, stagnated = 0, 0, False
-        seconds = []
         while it < max_newton and not converged and not stagnated:
             prev_rn = res_h[it]
             if self._reference:
-                t0 = time.perf_counter()
-                jac = self._reference_jacobian(u)
-                _sync(self.device)
-                t1 = time.perf_counter()
-                prep = self._prepare_operator_dia(jac)
-                _sync(self.device)
-                t2 = time.perf_counter()
+                with span("newton.jacobian"):
+                    jac = self._reference_jacobian(u)
+                with span("newton.prep"):
+                    prep = self._prepare_operator_dia(jac)
             else:
                 prep = self._exact_prep
             sol = self._solve_prepared(prep, -F, cfg.krylov)
-            if self._reference:
-                _sync(self.device)
-                seconds.append((t1 - t0, t2 - t1, time.perf_counter() - t2))
             u, delta_u = u + sol.x, sol.x
             lin_total += sol.iters
             u, F, rn, dn = check(u, delta_u)
@@ -1076,10 +1105,10 @@ class NavierStokesSolver:
                                               and rn >= sc(0.9) * prev_rn)
         stats = NewtonStats(iters=min(it + 1, max_newton),
                             converged=converged, res_hist=res_h,
-                            du_hist=du_h, lin_iters=lin_total,
-                            seconds=tuple(seconds))
+                            du_hist=du_h, lin_iters=lin_total)
         return u, delta_u, stats
 
+    @spanned("step")
     @no_tf32
     def step(self, u, u_old, delta_u):
         """One backward-Euler step. Returns (u_new, delta_u, stats)."""

@@ -84,6 +84,7 @@ from navierstokes_tpu_torch.solvers.gmres import GMRESResult, gmres
 from navierstokes_tpu_torch.solvers.sstep import ca_gmres
 from navierstokes_tpu_torch.solvers.vectors import Shards
 from navierstokes_tpu_torch.utils.precision import no_tf32, no_tf32_operators
+from navierstokes_tpu_torch.utils.profiling import spanned, wrap
 
 SCHUR_SINGLE_CHIP = ("preconditioner='schur' is single-chip only (its "
                      "sub-block plane applies are not sharded); use "
@@ -255,6 +256,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
     # -- assembly: per shard ----------------------------------------------
 
+    @spanned("setup.assemble")
     def _assemble_dia(self, terms, reynolds: float,
                       UL: Optional[torch.Tensor] = None) -> torch.Tensor:
         parts = partitioned_assemble_dia(
@@ -322,6 +324,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         if prep.kind == "tlp":
             d3 = [d.reshape(4, 4, prep.L) for d in prep.dinv.parts]
 
+            @wrap("op.apply")
             def apply_A(x):
                 return partitioned_spmv_plane(prep.offsets, prep.op, x,
                                               nb=prep.n)
@@ -331,6 +334,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                 return Shards((d * v.reshape(1, 4, -1)).sum(1).reshape(-1)
                               for d, v in zip(d3, r.parts))
         else:
+            @wrap("op.apply")
             def apply_A(x):
                 return partitioned_spmv_dia(prep.offsets, prep.op, x,
                                             plain=plain)
@@ -342,6 +346,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
         if prep.kind == "bj":
             order = self.cfg.krylov.neumann_order
 
+            @wrap("pc.apply")
             def neumann(r):
                 acc = r
                 cur = r
@@ -359,10 +364,12 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
             return matvec, b_prep, {"apply_S": apply_A, "neumann": neumann}
 
         coarse = self._coarse_correction(prep)
+        smooth = wrap("pc.smooth")(apply_Dinv)
 
+        @wrap("pc.apply")
         def minv(r):
             z = coarse(r)
-            return z + apply_Dinv(r - apply_A(z))
+            return z + smooth(r - apply_A(z))
 
         def matvec(x):
             return minv(apply_A(x))
@@ -398,6 +405,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                 z[n:] = 0
             return z.reshape(-1)
 
+        @wrap("pc.coarse")
         def coarse(r):
             rcs = [restrict(a) for a in r.parts]
             rc = {dev: all_gather(rcs, dev) for dev in dict.fromkeys(
@@ -415,6 +423,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
         return coarse
 
+    @spanned("krylov.solve")
     @no_tf32
     def _solve_prepared(self, prep: ShardedPrep, rhs: torch.Tensor,
                         solver_cfg) -> GMRESResult:
@@ -445,6 +454,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
     # -- the operator-form residual on shards -------------------------------
 
+    @spanned("setup.residual_ops")
     def _residual_operators(self, prep, jlin: torch.Tensor) -> tuple:
         """(A_lin, M/dt) in shards of the solve's layout; A_lin is the
         prep's own operator where it differs only in BC rows, as on one

@@ -45,7 +45,11 @@ reads a Gmsh 2.2 file as it is numbered (no reordering).
 `--checkpoint PATH --checkpoint-every N` writes the state every N steps;
 `--resume PATH` goes on from it, without the Stokes solve, to the same
 final step as the uninterrupted run (`--steps` or t_final / dt counts from
-0).  `--profile` prints the event table of setup, Stokes and the time loop.
+0).  `--profile` records the program's spans (`utils/profiling`) and
+prints their tree at the end: count, total and self seconds of the run's
+phases (setup, stokes_init, operator_prep, time_loop) and of every span
+inside them, down to the GMRES iteration and the host's waits on the
+device.
 """
 
 from __future__ import annotations
@@ -182,7 +186,8 @@ def main(argv=None) -> Optional[RunOutput]:
     p.add_argument("--resume", default=None,
                    help="checkpoint to go on from (skips the Stokes solve)")
     p.add_argument("--profile", action="store_true",
-                   help="print an event-log report at the end")
+                   help="record the program's spans and print their tree "
+                        "at the end")
     p.add_argument("--deflation-k", type=int, default=None,
                    help="GCRO recycled-subspace size (harmonic Ritz "
                         "vectors of the constant preconditioned operator; "
@@ -216,7 +221,7 @@ def main(argv=None) -> Optional[RunOutput]:
     from navierstokes_tpu_torch.mesh.gmsh import read_gmsh
     from navierstokes_tpu_torch.model import NavierStokesSolver
     from navierstokes_tpu_torch.parallel import DistributedNavierStokesSolver
-    from navierstokes_tpu_torch.utils.profiling import EventLog
+    from navierstokes_tpu_torch.utils import profiling
 
     device = torch.device("cpu" if args.cpu else args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -239,7 +244,6 @@ def main(argv=None) -> Optional[RunOutput]:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    events = EventLog()
     t0 = time.perf_counter()
     if args.msh:
         mesh = read_gmsh(args.msh)
@@ -279,60 +283,65 @@ def main(argv=None) -> Optional[RunOutput]:
     print(f"Matrix size : {4 * mesh.nv}")
     print(f"device={device} dtype={dtype} nodes={mesh.nv} "
           f"tets={mesh.ne}")
-    with events.event("setup"):
-        if devices is None:
-            solver = NavierStokesSolver(mesh, cfg, device=device)
-        else:
-            solver, _ = DistributedNavierStokesSolver.from_mesh(
-                mesh, cfg, devices=devices)
-            print(f"distributed: {solver.placement()}; shard kernel "
-                  f"{solver.shard_kernel_name()}")
-        sync()
-    kr = solver.cfg.krylov
-    print(f"preconditioner={kr.preconditioner} spmv={kr.spmv} "
-          f"cgs2={kr.cgs2} prep={solver.prep_kind}"
-          + (" (kernel-free: K2's plain version)" if kr.spmv == "xla"
-             else ""))
-    setup_s = time.perf_counter() - t0
-
-    start_step, delta_u0 = 0, None
-    t0 = time.perf_counter()
-    if args.resume:
-        # cfg is the user-level config, the one run() fingerprints its
-        # checkpoints with
-        start_step, u0, _, delta_u0 = load_checkpoint(args.resume, cfg=cfg)
-        print(f"resumed from step {start_step}")
-    else:
-        print("Solving Stokes system...")
-        with events.event("stokes_init"):
-            u0 = solver.stokes_init()
+    log = profiling.enable() if args.profile else None
+    try:
+        with profiling.span("setup"):
+            if devices is None:
+                solver = NavierStokesSolver(mesh, cfg, device=device)
+            else:
+                solver, _ = DistributedNavierStokesSolver.from_mesh(
+                    mesh, cfg, devices=devices)
+                print(f"distributed: {solver.placement()}; shard kernel "
+                      f"{solver.shard_kernel_name()}")
             sync()
-        st = solver.stokes_result
-        print(f"Stokes: lin={st.iters} converged={st.converged}")
-    stokes_s = time.perf_counter() - t0
+        kr = solver.cfg.krylov
+        print(f"preconditioner={kr.preconditioner} spmv={kr.spmv} "
+              f"cgs2={kr.cgs2} prep={solver.prep_kind}"
+              + (" (kernel-free: K2's plain version)" if kr.spmv == "xla"
+                 else ""))
+        setup_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    with events.event("operator_prep"):
-        solver._ensure_prepared()
-        sync()
-    prep_s = time.perf_counter() - t0
+        start_step, delta_u0 = 0, None
+        t0 = time.perf_counter()
+        if args.resume:
+            # cfg is the user-level config, the one run() fingerprints its
+            # checkpoints with
+            start_step, u0, _, delta_u0 = load_checkpoint(args.resume, cfg=cfg)
+            print(f"resumed from step {start_step}")
+        else:
+            print("Solving Stokes system...")
+            with profiling.span("stokes_init"):
+                u0 = solver.stokes_init()
+                sync()
+            st = solver.stokes_result
+            print(f"Stokes: lin={st.iters} converged={st.converged}")
+        stokes_s = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    with events.event("time_loop"):
-        u = solver.run(
-            max(n_steps - start_step, 0), u0=u0,
-            save_dir=args.save_dir if args.save else None,
-            save_every=args.save_every if args.save else 0,
-            write_vtu_files=args.vtu, monitor=True,
-            checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every,
-            start_step=start_step, delta_u0=delta_u0,
-        )
-        sync()
-    steps_s = time.perf_counter() - t0
-    print(f"Total time: {steps_s:.6f} seconds")
-    if args.profile:
-        print(events.report())
+        t0 = time.perf_counter()
+        with profiling.span("operator_prep"):
+            solver._ensure_prepared()
+            sync()
+        prep_s = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        with profiling.span("time_loop"):
+            u = solver.run(
+                max(n_steps - start_step, 0), u0=u0,
+                save_dir=args.save_dir if args.save else None,
+                save_every=args.save_every if args.save else 0,
+                write_vtu_files=args.vtu, monitor=True,
+                checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every,
+                start_step=start_step, delta_u0=delta_u0,
+            )
+            sync()
+        steps_s = time.perf_counter() - t0
+        print(f"Total time: {steps_s:.6f} seconds")
+    finally:
+        if log is not None:
+            profiling.disable()
+    if log is not None:
+        print(log.report())
     return RunOutput(u=u, solver=solver, setup_s=setup_s, stokes_s=stokes_s,
                      prep_s=prep_s, steps_s=steps_s)
 

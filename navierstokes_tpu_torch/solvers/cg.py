@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from navierstokes_tpu_torch.solvers.gmres import scalar_type
+from navierstokes_tpu_torch.utils.profiling import fetch
 
 
 class CGResult(NamedTuple):
@@ -38,7 +39,7 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     r = b - matvec(x)
     p = M(r)
     rz = torch.dot(r, p)
-    resnorm = np.sqrt(np.abs(sc(rz.item())))
+    resnorm = np.sqrt(np.abs(sc(fetch(rz).item())))
     tol = max(sc(rtol) * resnorm, sc(atol))
     iters = 0
     while resnorm > tol and iters < maxiter:
@@ -51,6 +52,6 @@ def cg(matvec: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         p = z + (rz_new / rz) * p
         rz = rz_new
         iters += 1
-        resnorm = np.sqrt(np.abs(sc(rz.item())))
+        resnorm = np.sqrt(np.abs(sc(fetch(rz).item())))
     return CGResult(x=x, iters=iters, resnorm=float(resnorm),
                     converged=bool(resnorm <= tol))

@@ -16,7 +16,13 @@ distributed solver (`solvers/vectors.py`; K3 takes one tensor only).  Each
 inner iteration fetches the new Hessenberg column (k+2 numbers) in one host
 sync; the rotations, the tolerance tests and the small triangular solve run
 on the host, in numpy scalars of the working dtype so that float32 rounds
-as it does on the device.
+as it does on the device.  Every host read goes through
+`utils/profiling.fetch`: one before the first cycle, one per cycle, one per
+iteration.  The spans (on only where `utils/profiling` is enabled):
+`gmres.restart` (a cycle's residual and its read), `gmres.iter` (one inner
+iteration; its self time is the host's Givens work), `gmres.orth` (the
+projection, the norm and the new basis row) and `gmres.update` (the
+cycle's update of x).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 
 from navierstokes_tpu_torch.ops.cgs2 import cgs2_project
 from navierstokes_tpu_torch.solvers import vectors as vs
+from navierstokes_tpu_torch.utils.profiling import fetch, span
 
 
 class GMRESResult(NamedTuple):
@@ -84,9 +91,10 @@ def gmres(
     def pre_residual(x):
         return M(b - matvec(x))
 
-    r = pre_residual(x)
-    beta_t = vs.norm(r)
-    beta0 = sc(beta_t.item())
+    with span("gmres.restart"):
+        r = pre_residual(x)
+        beta_t = vs.norm(r)
+        beta0 = sc(fetch(beta_t).item())
     tol = max(sc(rtol) * beta0, sc(atol))
 
     iters, resnorm = 0, beta0
@@ -94,11 +102,12 @@ def gmres(
     V = vs.basis(m + 1, b)
     first = True
     while not converged and not stalled and iters < maxiter and resnorm > 0:
-        if not first:
-            r = pre_residual(x)
-            beta_t = vs.norm(r)
+        with span("gmres.restart"):
+            if not first:
+                r = pre_residual(x)
+                beta_t = vs.norm(r)
+            beta = sc(fetch(beta_t).item())
         first = False
-        beta = sc(beta_t.item())
         prev_resnorm = resnorm
         V.zero_()
         V[0] = r / torch.where(beta_t > 0, beta_t, one)
@@ -110,47 +119,51 @@ def gmres(
 
         k, done, brk = 0, bool(beta <= tol), False
         while k < m and not done:
-            w = M(matvec(V[k]))
-            if cgs2_kernel:
-                w, hf = cgs2_project(V, w, k, compensated=cgs2_compensated)
-                h_t = hf[:k + 1]
-            else:
-                w, h_t = vs.cgs2(V, w, k)
-            hk1_t = vs.norm(w)
-            V[k + 1] = w / torch.where(hk1_t > 0, hk1_t, one)
-            col = torch.cat([h_t, hk1_t[None]]).cpu().numpy()  # one sync
-            h, hk1 = col[:k + 1], col[k + 1]
+            with span("gmres.iter"):
+                w = M(matvec(V[k]))
+                with span("gmres.orth"):
+                    if cgs2_kernel:
+                        w, hf = cgs2_project(V, w, k,
+                                             compensated=cgs2_compensated)
+                        h_t = hf[:k + 1]
+                    else:
+                        w, h_t = vs.cgs2(V, w, k)
+                    hk1_t = vs.norm(w)
+                    V[k + 1] = w / torch.where(hk1_t > 0, hk1_t, one)
+                col = fetch(torch.cat([h_t, hk1_t[None]])).numpy()
+                h, hk1 = col[:k + 1], col[k + 1]
 
-            # rotations 0..k-1 applied to the new column
-            c = h.copy()
-            for i in range(k):
-                ci = cs[i] * c[i] + sn[i] * c[i + 1]
-                c[i + 1] = -sn[i] * c[i] + cs[i] * c[i + 1]
-                c[i] = ci
-            # the new rotation zeroing hk1; a hard breakdown is a zero R[k, k]
-            # RELATIVE to the column's rotation-invariant scale
-            a_ = c[k]
-            denom = np.sqrt(a_ * a_ + hk1 * hk1)
-            colnorm = np.sqrt(np.sum(h * h) + hk1 * hk1)
-            breakdown = bool(denom <= colnorm * eps4)
-            c_new = sc(1.0) if breakdown else a_ / denom
-            s_new = sc(0.0) if breakdown else hk1 / denom
-            cs[k], sn[k] = c_new, s_new
-            R[:k + 1, k] = c
-            R[k, k] = denom
-            gk = g[k]
-            g[k] = c_new * gk
-            g[k + 1] = -s_new * gk
-            res_est = abs(g[k + 1])
-            done = bool(res_est <= tol or hk1 <= tiny or breakdown)
-            brk = breakdown
-            if not breakdown:
-                k += 1
+                # rotations 0..k-1 applied to the new column
+                c = h.copy()
+                for i in range(k):
+                    ci = cs[i] * c[i] + sn[i] * c[i + 1]
+                    c[i + 1] = -sn[i] * c[i] + cs[i] * c[i + 1]
+                    c[i] = ci
+                # the new rotation zeroing hk1; a hard breakdown is a zero
+                # R[k, k] RELATIVE to the column's rotation-invariant scale
+                a_ = c[k]
+                denom = np.sqrt(a_ * a_ + hk1 * hk1)
+                colnorm = np.sqrt(np.sum(h * h) + hk1 * hk1)
+                breakdown = bool(denom <= colnorm * eps4)
+                c_new = sc(1.0) if breakdown else a_ / denom
+                s_new = sc(0.0) if breakdown else hk1 / denom
+                cs[k], sn[k] = c_new, s_new
+                R[:k + 1, k] = c
+                R[k, k] = denom
+                gk = g[k]
+                g[k] = c_new * gk
+                g[k + 1] = -s_new * gk
+                res_est = abs(g[k + 1])
+                done = bool(res_est <= tol or hk1 <= tiny or breakdown)
+                brk = breakdown
+                if not breakdown:
+                    k += 1
 
-        y = _back_substitute(R, g, k)
-        if k:
-            y_t = torch.as_tensor(y[:k], device=device)
-            x = x + vs.combine(V, k, y_t)
+        with span("gmres.update"):
+            y = _back_substitute(R, g, k)
+            if k:
+                y_t = torch.as_tensor(y[:k], device=device)
+                x = x + vs.combine(V, k, y_t)
         resnorm = abs(g[k])
         stalled = k == 0 or (brk and resnorm >= sc(0.99) * prev_resnorm)
         iters += k

@@ -34,6 +34,7 @@ import torch
 
 from navierstokes_tpu_torch.solvers import vectors as vs
 from navierstokes_tpu_torch.solvers.gmres import GMRESResult, scalar_type
+from navierstokes_tpu_torch.utils.profiling import fetch
 
 
 def _identity(x):
@@ -149,7 +150,7 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
                                           upper=True)[:, 0]
         return x + vs.apply_columns(Q, m, y)
 
-    beta0 = sc(vs.norm(pre_residual(x)).item())
+    beta0 = sc(fetch(vs.norm(pre_residual(x))).item())
     tol = max(sc(rtol) * beta0, sc(atol))
     shrink = sc(1 - 1e-12)          # 1 in float32, as in the JAX package
     iters, prev_res = 0, beta0
@@ -157,7 +158,7 @@ def ca_gmres(matvec: Callable, b: torch.Tensor,
     while not converged and not stalled and iters < maxiter:
         x = cycle(x)
         # the true preconditioned residual decides convergence
-        true_res = sc(vs.norm(pre_residual(x)).item())
+        true_res = sc(fetch(vs.norm(pre_residual(x))).item())
         stalled = not (true_res < prev_res * shrink) and true_res > tol
         iters += m
         prev_res = true_res

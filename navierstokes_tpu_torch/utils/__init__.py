@@ -1,3 +1,3 @@
-from navierstokes_tpu_torch.utils.profiling import EventLog, trace
+from navierstokes_tpu_torch.utils.profiling import EventLog
 
-__all__ = ["EventLog", "trace"]
+__all__ = ["EventLog"]

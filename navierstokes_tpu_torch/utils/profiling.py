@@ -1,69 +1,173 @@
-"""Profiling hooks, as in the JAX package (the reference's PETSc log
-events and `-log_view`).
+"""The program's spans and its count of host-device waits.
 
-- `EventLog`: wall time of named events, with optional flop counts, and a
-  `-log_view`-style table.  An event given a CUDA tensor as `sync_result`
-  ends with `torch.cuda.synchronize`, so it brackets the device work and
-  not only its enqueue.
-- `trace(logdir)`: a `torch.profiler` trace of CPU and CUDA activity,
-  written as a Chrome trace (`trace.json`) under `logdir`.
+- `EventLog`: the one span store.  Per span name and parent span it keeps
+  the count, the total host seconds and the self seconds (total less the
+  part its child spans cover), in memory; `report()` prints the tree.
+- `enable()` / `disable()`: spans are off by default.  `python -m
+  navierstokes_tpu_torch.run --profile` and `python3 -m benchmark.spans`
+  turn them on.  Off, a span site costs one test of a module flag, and a
+  closure built per solve (`wrap`) is the bare closure.
+- While a `torch.profiler` session records, each span also opens
+  `record_function("ns.<name>")`, so it lies in the Chrome trace as a
+  `user_annotation` on the clock of the kernels and runtime calls.
+- `fetch(t)`: every device-to-host read on the solve path goes through it.
+  It counts the read in `syncs` (always, as the kernels' launch counters
+  count) and, with spans on, times it as span `sync`.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import functools
 import time
 from collections import defaultdict
+from typing import Optional
 
 import torch
 
+PREFIX = "ns."          # the spans' names in a profiler trace
+
+_on = False
+_log: Optional["EventLog"] = None
+syncs = 0               # device-to-host reads through `fetch`
+_OFF = contextlib.nullcontext()
+
 
 class EventLog:
+    """Spans by path (the names from the outermost open span down): count,
+    total and child seconds; read by (name, parent) or as a tree."""
+
     def __init__(self):
         self._count = defaultdict(int)
         self._total = defaultdict(float)
-        self._flops = defaultdict(float)
+        self._inner = defaultdict(float)
+        self._open = []         # [path, start, child seconds] per open span
 
-    @contextlib.contextmanager
-    def event(self, name: str, flops: float = 0.0, sync_result=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if sync_result is not None and sync_result.device.type == "cuda":
-                torch.cuda.synchronize(sync_result.device)
-            self._count[name] += 1
-            self._total[name] += time.perf_counter() - t0
-            self._flops[name] += flops
+    def enter(self, name: str) -> None:
+        path = (self._open[-1][0] if self._open else ()) + (name,)
+        self._open.append([path, time.perf_counter(), 0.0])
 
-    def log_flops(self, name: str, flops: float) -> None:
-        self._flops[name] += flops
+    def exit(self) -> None:
+        path, t0, inner = self._open.pop()
+        dt = time.perf_counter() - t0
+        self._count[path] += 1
+        self._total[path] += dt
+        self._inner[path] += inner
+        if self._open:
+            self._open[-1][2] += dt
+
+    def snapshot(self) -> dict:
+        """{(name, parent name or None): (count, total s, self s)}, summed
+        over the paths that end so."""
+        out = {}
+        for path, n in self._count.items():
+            key = (path[-1], path[-2] if len(path) > 1 else None)
+            c, t, s = out.get(key, (0, 0.0, 0.0))
+            out[key] = (c + n, t + self._total[path],
+                        s + self._total[path] - self._inner[path])
+        return out
 
     def report(self) -> str:
-        """The events by total time: count, seconds, ms per event,
-        GFLOP/s."""
-        lines = [f"{'Event':<28}{'Count':>8}{'Time (s)':>12}{'Avg (ms)':>12}"
-                 f"{'GFLOP/s':>10}"]
-        for name in sorted(self._total, key=lambda n: -self._total[n]):
-            cnt, tot = self._count[name], self._total[name]
-            gfs = self._flops[name] / tot / 1e9 if tot > 0 else 0.0
-            lines.append(f"{name:<28}{cnt:>8}{tot:>12.4f}"
-                         f"{1e3 * tot / max(cnt, 1):>12.3f}{gfs:>10.2f}")
+        """The span tree, children by total time: count, total and self
+        seconds, ms per span."""
+        lines = [f"{'Span':<40}{'Count':>9}{'Total (s)':>12}{'Self (s)':>12}"
+                 f"{'Avg (ms)':>11}"]
+
+        def walk(parent: tuple) -> None:
+            kids = [p for p in self._count
+                    if len(p) == len(parent) + 1 and p[:-1] == parent]
+            for p in sorted(kids, key=lambda p: -self._total[p]):
+                n, tot = self._count[p], self._total[p]
+                label = "  " * (len(p) - 1) + p[-1]
+                lines.append(f"{label:<40}{n:>9}{tot:>12.4f}"
+                             f"{tot - self._inner[p]:>12.4f}"
+                             f"{1e3 * tot / n:>11.3f}")
+                walk(p)
+
+        walk(())
         return "\n".join(lines)
 
-    def totals(self) -> dict:
-        return dict(self._total)
+
+class _Span:
+    __slots__ = ("name", "_log", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._log = _log
+        self._log.enter(self.name)
+        self._range = None
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(PREFIX + self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        self._log.exit()
+        return False
 
 
-@contextlib.contextmanager
-def trace(logdir: str):
-    """Trace the body with `torch.profiler` (CPU, and CUDA where there is
-    a card) into `logdir/trace.json`."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+def enable(log: Optional[EventLog] = None) -> EventLog:
+    """Record spans from now on, into `log` or a new log; returns it."""
+    global _on, _log
+    _log = log if log is not None else EventLog()
+    _on = True
+    return _log
+
+
+def disable() -> None:
+    """Stop recording (the log keeps what it holds)."""
+    global _on
+    _on = False
+
+
+def active() -> Optional[EventLog]:
+    """The log spans record into, None while spans are off."""
+    return _log if _on else None
+
+
+def span(name: str):
+    """Context manager: span `name` where spans are on."""
+    return _Span(name) if _on else _OFF
+
+
+def spanned(name: str):
+    """Decorator for a function or method: each call runs inside span
+    `name` where spans are on at the call."""
+    def decorate(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not _on:
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+        return run
+    return decorate
+
+
+def wrap(name: str):
+    """Decorator for a closure built once per solve: wrapped in span `name`
+    if spans are on when it is built, else returned as it is."""
+    def decorate(fn):
+        if not _on:
+            return fn
+
+        def run(*args, **kwargs):
+            with _Span(name):
+                return fn(*args, **kwargs)
+        return run
+    return decorate
+
+
+def fetch(t: torch.Tensor) -> torch.Tensor:
+    """`t.cpu()`: the host waits on the device.  Counted in `syncs`; span
+    `sync` where spans are on."""
+    global syncs
+    syncs += 1
+    if not _on:
+        return t.cpu()
+    with _Span("sync"):
+        return t.cpu()

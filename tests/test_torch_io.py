@@ -1,12 +1,13 @@
 """The port's input and output against the JAX package's: the Gmsh reader
 and writer, RCM ordering, the `.vtu`/`.pvd` writer, checkpoints (their
 config fingerprint, a checkpoint crossing from the JAX package, resume
-against an uninterrupted run), the discretization cache and the event
+against an uninterrupted run), the discretization cache and the span
 log.  Inputs are made with numpy from a seed, or are inline `.msh` text,
 and handed to both packages."""
 
 import dataclasses
 import os
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +36,7 @@ from navierstokes_tpu_torch.mesh import channel_mesh
 from navierstokes_tpu_torch.mesh import gmsh as tgmsh
 from navierstokes_tpu_torch.mesh import ordering as tord
 from navierstokes_tpu_torch.model import NavierStokesSolver
-from navierstokes_tpu_torch.utils.profiling import EventLog, trace
+from navierstokes_tpu_torch.utils.profiling import EventLog
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -324,23 +325,35 @@ def test_disc_cache_round_trip(tmp_path):
                              "dia_flat_map", "dia_elem_map", "format"))
 
 
-def test_event_log_report(tmp_path):
-    """Counts, totals and the -log_view-style table, events by time; and
-    `trace`, a torch.profiler trace written as Chrome JSON."""
+def test_event_log_report():
+    """The span tree: nesting by path, counts, total and self seconds (the
+    total less what child spans cover), read by (name, parent) and
+    printed as an indented table, children by total time."""
     log = EventLog()
     for _ in range(3):
-        with log.event("apply", flops=2e9):
-            pass
-    with log.event("slow", sync_result=torch.zeros(1)):
-        sum(range(200_000))
-    log.log_flops("slow", 1e6)
-    tot = log.totals()
-    assert set(tot) == {"apply", "slow"} and tot["slow"] > tot["apply"]
+        log.enter("iter")
+        log.enter("apply")
+        time.sleep(0.002)
+        log.exit()
+        log.enter("sync")
+        log.exit()
+        log.exit()
+    log.enter("apply")
+    log.exit()
+    snap = log.snapshot()
+    assert set(snap) == {("iter", None), ("apply", "iter"), ("sync", "iter"),
+                         ("apply", None)}
+    n_it, tot_it, self_it = snap[("iter", None)]
+    n_ap, tot_ap, self_ap = snap[("apply", "iter")]
+    assert (n_it, n_ap, snap[("sync", "iter")][0]) == (3, 3, 3)
+    assert snap[("apply", None)][0] == 1
+    assert tot_ap >= 0.006 and self_ap == tot_ap
+    assert self_it == pytest.approx(
+        tot_it - tot_ap - snap[("sync", "iter")][1], abs=1e-12)
+    assert 0 <= self_it <= tot_it
     lines = log.report().splitlines()
-    assert lines[0].split() == ["Event", "Count", "Time", "(s)", "Avg",
-                                "(ms)", "GFLOP/s"]
-    assert lines[1].split()[:2] == ["slow", "1"]
-    assert lines[2].split()[:2] == ["apply", "3"]
-    with trace(str(tmp_path / "prof")):
-        torch.ones(64) @ torch.ones(64)
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    assert lines[0].split() == ["Span", "Count", "Total", "(s)", "Self",
+                                "(s)", "Avg", "(ms)"]
+    assert [ln.split()[:2] for ln in lines[1:]] == [
+        ["iter", "3"], ["apply", "3"], ["sync", "3"], ["apply", "1"]]
+    assert lines[2].startswith("  apply") and lines[4].startswith("apply")

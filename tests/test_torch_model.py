@@ -633,7 +633,7 @@ _SMALL = ["--nx", "3", "--ny", "2", "--nz", "2", "--device", "cpu"]
 def test_cli_io_flags_run(flag, tmp_path, capsys):
     """The JAX CLI's I/O flags run (f64 'bj' on channel(3,2,2)): a Gmsh
     mesh in, `.vtu` files and a `.pvd` out, a checkpoint every N steps, a
-    resume that repeats the uninterrupted run, the event table."""
+    resume that repeats the uninterrupted run, the span tree."""
     res, ck = str(tmp_path / "res"), str(tmp_path / "ck.npz")
     if flag == "--msh":
         msh = str(tmp_path / "mesh.msh")
@@ -665,9 +665,10 @@ def test_cli_io_flags_run(flag, tmp_path, capsys):
     else:
         out = run.main(_SMALL + ["--steps", "1", "--profile"])
         table = capsys.readouterr().out
-        assert "Event" in table and "GFLOP/s" in table
-        for event in ("setup", "stokes_init", "operator_prep", "time_loop"):
-            assert event in table
+        assert "Span" in table and "Self (s)" in table
+        for span in ("setup", "stokes_init", "operator_prep", "time_loop",
+                     "  setup.discretization", "    gmres.iter"):
+            assert span in table
     assert all(st.converged for _, st, _ in out.solver.history)
 
 

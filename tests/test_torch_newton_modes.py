@@ -36,6 +36,7 @@ from navierstokes_tpu_torch.fem.dirichlet import zero_rows_bcsr
 from navierstokes_tpu_torch.mesh import channel_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.sparse.bcsr import bcsr_from_coo, bcsr_matvec
+from navierstokes_tpu_torch.utils import profiling
 
 from data_golden_trajectory import TRAJ
 
@@ -156,18 +157,27 @@ def _step(mesh, cfg, u0, disc):
 def test_exact_and_reference_jacobian_agree(e2e):
     """Both Jacobian modes reach the residual's root at 1e-8 (the bar of
     the JAX package's test); 'exact' needs no more Newton iterations;
-    reference mode times each iteration's assembly, preparation and
-    solve."""
+    reference mode spans each iteration's assembly and preparation
+    (`newton.jacobian`, `newton.prep`), the exact Jacobian neither."""
     mesh, base, u0 = e2e
-    u_e, _, st_e = base.step(u0, u0, torch.zeros_like(u0))
-    u_r, _, st_r = _step(mesh, dataclasses.replace(CFG, jacobian="reference"),
-                         u0, base.disc)
+    log = profiling.enable()
+    try:
+        u_e, _, st_e = base.step(u0, u0, torch.zeros_like(u0))
+        exact = log.snapshot()
+        u_r, _, st_r = _step(mesh, dataclasses.replace(
+            CFG, jacobian="reference"), u0, base.disc)
+    finally:
+        profiling.disable()
+    spans = log.snapshot()
     assert st_e.converged and st_r.converged
     assert st_e.iters <= st_r.iters
     assert _rel(u_e.numpy(), u_r.numpy()) < 1e-8
-    assert st_e.seconds == ()
-    assert len(st_r.seconds) == st_r.iters - 1
-    assert all(len(t) == 3 and min(t) >= 0 for t in st_r.seconds)
+    assert not {k for k in exact if k[0].startswith("newton.") and
+                k[0] != "newton.check"}
+    for name in ("newton.jacobian", "newton.prep"):
+        assert spans[(name, "step")][0] == st_r.iters - 1
+    assert spans[("krylov.solve", "step")][0] == \
+        st_e.iters - 1 + st_r.iters - 1
 
 
 def test_residual_modes_agree(e2e):
