@@ -65,6 +65,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      for its own work only, so Stokes and every step take phase 8's
      Newton and GMRES counts and end in its state bit for bit, and the
      flags read True after;
+  8c. GMRES's inner iterations as CUDA graphs (`solvers/graphs.py`): the
+     held Newton operator of the 'tlp' flagship at matrix 6, one solve
+     that captures, then solves eager and graphed in turns (eager,
+     graphed, graphed, eager): x, the iteration count and the residual
+     estimate equal bit for bit, the K1 launches counted equal, and the
+     host ms per iteration each way (each solve ends in a sync);
   9. the same with `--cgs2 pallas` (K3 in every GMRES iteration): GMRES per
      step within 0.8x-1.25x of phase 8's, K3 and K1 counted;
  10. scalar two-level path: `run.main --spmv pallas` at matrix 6 in float32
@@ -247,7 +253,7 @@ from navierstokes_tpu_torch.ops.block import block4_inverse
 from navierstokes_tpu_torch.parallel import DistributedNavierStokesSolver
 from navierstokes_tpu_torch.parallel import dryrun
 from navierstokes_tpu_torch.parallel import partitioned as tpart
-from navierstokes_tpu_torch.solvers import precond
+from navierstokes_tpu_torch.solvers import graphs, precond
 from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import build_aggregates
 from navierstokes_tpu_torch.solvers.gmres import gmres
@@ -1423,6 +1429,73 @@ def tf32_phase(off) -> None:
     if counts(out) != counts(off) or not same or after != (True, True):
         raise AssertionError("the solver's work depends on the caller's "
                              "TF32 flags, or changed them")
+
+
+def graph_phase(dev, matrix_id: int = 6) -> dict:
+    """8c. The held 'tlp' Newton operator's GMRES, graphed and eager in
+    turns: equal bit for bit, K1 launches equal; host ms per iteration
+    each way (wall time of a solve ending in a sync, over its
+    iterations)."""
+    phase(f"8c. GMRES iterations as CUDA graphs: the 'tlp' Newton operator "
+          f"at matrix {matrix_id}, eager and graphed in turns")
+    solver = NavierStokesSolver(scaling_series_mesh(matrix_id),
+                                f32_flagship_cfg(), device=dev)
+    u0 = solver.stokes_init()
+    solver._ensure_prepared()
+    if solver.prep_kind != "tlp":
+        raise AssertionError(f"prep {solver.prep_kind}")
+    kr = solver.cfg.krylov
+    matvec, b_prep, _ = solver._operators(solver._exact_prep)
+    F = solver._residual_fn(u0)(u0)
+    b = b_prep(pd.to_planes(-F, solver.disc.nv, solver._nbp))
+    kw = dict(restart=kr.restart, rtol=kr.rtol, atol=kr.atol,
+              maxiter=kr.maxiter)
+    g = graphs.IterationGraphs(b, kr.restart)
+    captures = profiling.graph_captures
+    t0 = time.perf_counter()
+    first = gmres(matvec, b, graphs=g, **kw)
+    _sync(dev)
+    print(f"first graphed solve: {first.iters} iterations, "
+          f"{profiling.graph_captures - captures} captures, "
+          f"{time.perf_counter() - t0:.3f} s")
+    runs, ms = [], {"eager": [], "graphed": []}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        launches = pd.kernel_launches
+        _sync(dev)
+        t0 = time.perf_counter()
+        r = gmres(matvec, b, graphs=g if mode == "graphed" else None, **kw)
+        _sync(dev)
+        ms[mode].append(1e3 * (time.perf_counter() - t0) / r.iters)
+        runs.append((r, pd.kernel_launches - launches))
+    for r, n in runs:
+        if not (torch.equal(r.x, first.x) and r.iters == first.iters
+                and r.resnorm == first.resnorm and n == runs[0][1]):
+            raise AssertionError(f"graphed and eager differ: {r.iters} / "
+                                 f"{first.iters} iterations, resnorm "
+                                 f"{r.resnorm} / {first.resnorm}, K1 "
+                                 f"{n} / {runs[0][1]}")
+    print(f"graphed = eager bit for bit ({first.iters} iterations, "
+          f"{runs[0][1]} K1 launches a solve); host ms per iteration: eager "
+          + ", ".join(f"{v:.4f}" for v in ms["eager"]) + "; graphed "
+          + ", ".join(f"{v:.4f}" for v in ms["graphed"]), flush=True)
+    if dev.type == "cuda":
+        # the profiler records each replayed kernel: K1's in the trace equal
+        # the launches counted
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            launches = pd.kernel_launches
+            gmres(matvec, b, graphs=g, **kw)
+            _sync(dev)
+        counted = pd.kernel_launches - launches
+        traced = sum(1 for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "plane_spmv" in e.name)
+        print(f"graphed solve under the profiler: {traced} K1 kernels in "
+              f"the trace, {counted} launches counted", flush=True)
+        if traced != counted:
+            raise AssertionError(f"K1 in the trace {traced} != {counted}")
+    return ms
 
 
 def plane_cgs2_phase(plane_lin: float):
@@ -3059,6 +3132,7 @@ def main() -> int:
     k1_launches, plane_lin, plane_out = plane_path_phase()
     tf32_phase(plane_out)
     del plane_out
+    graph_phase(dev)
     k3_launches = plane_cgs2_phase(plane_lin)
     k2_launches = scalar_path_phase(plane_lin)
     k3_comp_launches = scalar_comp_phase()

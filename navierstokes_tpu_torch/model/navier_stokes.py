@@ -43,6 +43,13 @@ methods are Python loops over device tensors; the host reads only the
 norms and small matrices it branches on, each read through
 `utils/profiling.fetch`.
 
+The exact-Jacobian prep, which every Newton iteration solves again, keeps
+its closures (`HeldOperators`, built once) and, for a plain GMRES solve
+(`cgs2='xla'`) on one CUDA tensor, the CUDA graphs of its inner iterations
+(`solvers/graphs.py`): the rule `graphs.engages` decides, no option.  Every
+other solve (Stokes, reference mode, deflation, CA-GMRES, CG, K3, the CPU)
+runs the eager loop.
+
 Spans (`utils/profiling`, off unless enabled): `step`, `newton.check`,
 `krylov.solve`, in reference mode `newton.jacobian` and `newton.prep`; the
 closures of `_prep_operators` as `op.apply`, `pc.apply`, `pc.coarse` and
@@ -56,7 +63,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import NamedTuple, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -93,7 +100,13 @@ from navierstokes_tpu_torch.ops.plane_dia import (
 )
 from navierstokes_tpu_torch.solvers import schur as sch
 from navierstokes_tpu_torch.utils.precision import no_tf32, no_tf32_operators
-from navierstokes_tpu_torch.utils.profiling import fetch, span, spanned, wrap
+from navierstokes_tpu_torch.utils.profiling import (
+    active,
+    fetch,
+    span,
+    spanned,
+    wrap,
+)
 from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
@@ -116,6 +129,7 @@ from navierstokes_tpu_torch.solvers.deflation import (
     harmonic_ritz_basis,
     recycle_space,
 )
+from navierstokes_tpu_torch.solvers import graphs as krylov_graphs
 from navierstokes_tpu_torch.solvers.gmres import (
     GMRESResult,
     gmres,
@@ -262,6 +276,21 @@ Prep = Union[PlanePrep, ScalarTwoLevelPrep, SchurPrep, BlockJacobiPrep,
              DeflatedPrep]
 
 
+@dataclasses.dataclass
+class HeldOperators:
+    """The closures of the exact-Jacobian prep, which every Newton iteration
+    solves again, built once and held, with the CUDA graphs of its GMRES
+    iterations.  Closures carry their spans or not as spans were when they
+    were built (`utils/profiling.wrap`), so they are built again where the
+    span log changed since."""
+
+    prep: Prep
+    log: object                 # `profiling.active()` at the build
+    matvec: Callable
+    b_prep: Callable
+    graphs: Optional[krylov_graphs.IterationGraphs] = None
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -331,6 +360,8 @@ class NavierStokesSolver:
                 self.disc.dia_pattern.offsets)
             self._nbp = self._plane_nbp()
         self._prepared = False
+        self._exact_prep: Optional[Prep] = None
+        self._held: Optional[HeldOperators] = None
         self.stokes_result: Optional[GMRESResult] = None
         self.history: list = []     # (step, NewtonStats, seconds) per step
 
@@ -890,9 +921,35 @@ class NavierStokesSolver:
             return res
         return res._replace(x=from_planes(res.x, *shape))
 
+    def _operators(self, prep: Prep) -> tuple:
+        """(matvec, b_prep, the `HeldOperators` or None): held for the
+        exact-Jacobian prep, built anew for any other (the Stokes operator,
+        reference mode's per-iteration preps)."""
+        if prep is not self._exact_prep:
+            matvec, b_prep, _ = self._prep_operators(prep)
+            return matvec, b_prep, None
+        held, log = self._held, active()
+        if held is None or held.prep is not prep or held.log is not log:
+            matvec, b_prep, _ = self._prep_operators(prep)
+            graphs = held.graphs if held and held.prep is prep else None
+            held = self._held = HeldOperators(prep, log, matvec, b_prep,
+                                              graphs)
+        return held.matvec, held.b_prep, held
+
+    def _iteration_graphs(self, held: Optional[HeldOperators], b,
+                          solver_cfg):
+        """The CUDA graphs of this solve's GMRES iterations where
+        `graphs.engages` (a plain GMRES solve of the held prep on one CUDA
+        tensor), else None."""
+        if not krylov_graphs.engages(solver_cfg, held is not None, b):
+            return None
+        if held.graphs is None or not held.graphs.fits(b, solver_cfg.restart):
+            held.graphs = krylov_graphs.IterationGraphs(b, solver_cfg.restart)
+        return held.graphs
+
     def _solve_prepared_raw(self, prep: Prep, rhs: torch.Tensor,
                             solver_cfg) -> GMRESResult:
-        matvec, b_prep, _ = self._prep_operators(prep)
+        matvec, b_prep, held = self._operators(prep)
         b_eff = b_prep(rhs)
         if solver_cfg.method == "cg":
             # for SPD sub-problems; the NS saddle-point system itself is
@@ -914,7 +971,8 @@ class NavierStokesSolver:
                      rtol=solver_cfg.rtol, atol=solver_cfg.atol,
                      maxiter=solver_cfg.maxiter,
                      cgs2_kernel=solver_cfg.cgs2 != "xla",
-                     cgs2_compensated=solver_cfg.cgs2 == "pallas_comp")
+                     cgs2_compensated=solver_cfg.cgs2 == "pallas_comp",
+                     graphs=self._iteration_graphs(held, b_eff, solver_cfg))
 
     # -- Krylov subspace recycling (solvers/deflation.py) ---------------------
 

@@ -18,11 +18,22 @@ sync; the rotations, the tolerance tests and the small triangular solve run
 on the host, in numpy scalars of the working dtype so that float32 rounds
 as it does on the device.  Every host read goes through
 `utils/profiling.fetch`: one before the first cycle, one per cycle, one per
-iteration.  The spans (on only where `utils/profiling` is enabled):
-`gmres.restart` (a cycle's residual and its read), `gmres.iter` (one inner
-iteration; its self time is the host's Givens work), `gmres.orth` (the
-projection, the norm and the new basis row) and `gmres.update` (the
-cycle's update of x).
+iteration.
+
+The device part of an inner iteration (`arnoldi_step`: the operator, the
+projection, the norm and the new basis row) runs eagerly, kernel by kernel,
+or, given `graphs` (`solvers/graphs.IterationGraphs`, which the solver
+passes for a plain GMRES solve of its held Newton operator on a CUDA
+device), as one CUDA graph per basis index k, captured the first time
+iteration k is reached and replayed after: the same kernels, the same
+answers bit for bit, one launch.  The basis is then the graphs' persistent
+one.
+
+The spans (on only where `utils/profiling` is enabled): `gmres.restart` (a
+cycle's residual and its read), `gmres.iter` (one inner iteration; its self
+time is the host's Givens work), `gmres.orth` (the projection, the norm and
+the new basis row, where they run eagerly), `gmres.replay` (a replayed
+iteration's graph launch) and `gmres.update` (the cycle's update of x).
 """
 
 from __future__ import annotations
@@ -61,6 +72,24 @@ def _back_substitute(R: np.ndarray, g: np.ndarray, k: int) -> np.ndarray:
     return y
 
 
+def arnoldi_step(matvec: Callable, precond: Callable, V, k: int,
+                 one: torch.Tensor, cgs2_kernel: bool = False,
+                 cgs2_compensated: bool = False) -> tuple:
+    """The device part of inner iteration k: w = precond(matvec(V[k])),
+    projected against V[:k+1]; V[k+1] = w / ||w||.  Returns (h, ||w||) on
+    the device."""
+    w = precond(matvec(V[k]))
+    with span("gmres.orth"):
+        if cgs2_kernel:
+            w, hf = cgs2_project(V, w, k, compensated=cgs2_compensated)
+            h_t = hf[:k + 1]
+        else:
+            w, h_t = vs.cgs2(V, w, k)
+        hk1_t = vs.norm(w)
+        vs.divide_into(V[k + 1], w, torch.where(hk1_t > 0, hk1_t, one))
+    return h_t, hk1_t
+
+
 def gmres(
     matvec: Callable,
     b: torch.Tensor,
@@ -73,12 +102,18 @@ def gmres(
     maxiter: int = 2000,
     cgs2_kernel: bool = False,
     cgs2_compensated: bool = False,
+    graphs=None,
 ) -> GMRESResult:
     """cgs2_kernel=True orthogonalizes through the fused projection (K3 on
-    the card), cgs2_compensated with its compensated h sums."""
+    the card), cgs2_compensated with its compensated h sums.  `graphs`
+    (an `IterationGraphs` that `fits` b and `restart`) runs each inner
+    iteration's device part as its CUDA graph."""
     if cgs2_kernel and isinstance(b, vs.Shards):
         raise ValueError("the fused CGS2 projection (K3) takes one vector: "
                          "its inner products cannot be summed across shards")
+    if graphs is not None and (cgs2_kernel or not graphs.fits(b, restart)):
+        raise ValueError("the iteration graphs take the four-GEMV CGS2 and "
+                         "a solve of their own vector shape and restart")
     dtype, device = b.dtype, b.device
     sc = scalar_type(dtype)
     eps4 = sc(4.0) * np.finfo(sc).eps
@@ -99,7 +134,7 @@ def gmres(
 
     iters, resnorm = 0, beta0
     converged, stalled = bool(beta0 <= tol), False
-    V = vs.basis(m + 1, b)
+    V = vs.basis(m + 1, b) if graphs is None else graphs.V
     first = True
     while not converged and not stalled and iters < maxiter and resnorm > 0:
         with span("gmres.restart"):
@@ -110,7 +145,7 @@ def gmres(
         first = False
         prev_resnorm = resnorm
         V.zero_()
-        V[0] = r / torch.where(beta_t > 0, beta_t, one)
+        vs.divide_into(V[0], r, torch.where(beta_t > 0, beta_t, one))
         R = np.zeros((m, m), dtype=sc)
         cs = np.zeros(m, dtype=sc)
         sn = np.zeros(m, dtype=sc)
@@ -120,17 +155,13 @@ def gmres(
         k, done, brk = 0, bool(beta <= tol), False
         while k < m and not done:
             with span("gmres.iter"):
-                w = M(matvec(V[k]))
-                with span("gmres.orth"):
-                    if cgs2_kernel:
-                        w, hf = cgs2_project(V, w, k,
-                                             compensated=cgs2_compensated)
-                        h_t = hf[:k + 1]
-                    else:
-                        w, h_t = vs.cgs2(V, w, k)
-                    hk1_t = vs.norm(w)
-                    V[k + 1] = w / torch.where(hk1_t > 0, hk1_t, one)
-                col = fetch(torch.cat([h_t, hk1_t[None]])).numpy()
+                if graphs is None:
+                    h_t, hk1_t = arnoldi_step(matvec, M, V, k, one,
+                                              cgs2_kernel, cgs2_compensated)
+                    col = torch.cat([h_t, hk1_t[None]])
+                else:
+                    col = graphs.column(k, matvec, M)
+                col = fetch(col).numpy()
                 h, hk1 = col[:k + 1], col[k + 1]
 
                 # rotations 0..k-1 applied to the new column

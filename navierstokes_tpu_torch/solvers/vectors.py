@@ -100,6 +100,17 @@ def norm(v) -> torch.Tensor:
     return torch.linalg.norm(v)
 
 
+def divide_into(out, v, s: torch.Tensor) -> None:
+    """out = v / s, written in place: one kernel into `out` (a basis row),
+    no copy after it (a copy would be one more node of a CUDA graph).  s is
+    0-dim, on the first shard's device."""
+    if isinstance(out, Shards):
+        for o, a in zip(out.parts, v.parts):
+            torch.div(a, s.to(a.device), out=o)
+    else:
+        torch.div(v, s, out=out)
+
+
 def basis(rows: int, like):
     """A zero Krylov basis of `rows` vectors shaped like `like`."""
     if isinstance(like, Shards):

@@ -13,6 +13,8 @@
 - `fetch(t)`: every device-to-host read on the solve path goes through it.
   It counts the read in `syncs` (always, as the kernels' launch counters
   count) and, with spans on, times it as span `sync`.
+- `graph_captures` and `graph_replays` count, always, the CUDA graphs of
+  GMRES's inner iteration that `solvers/graphs.py` captures and replays.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ PREFIX = "ns."          # the spans' names in a profiler trace
 _on = False
 _log: Optional["EventLog"] = None
 syncs = 0               # device-to-host reads through `fetch`
+graph_captures = 0      # CUDA graphs captured (solvers/graphs.py)
+graph_replays = 0       # and replayed
 _OFF = contextlib.nullcontext()
 
 
