@@ -53,13 +53,16 @@ runs the eager loop.
 Spans (`utils/profiling`, off unless enabled): `step`, `newton.check`,
 `krylov.solve`, in reference mode `newton.jacobian` and `newton.prep`; the
 closures of `_prep_operators` as `op.apply`, `pc.apply`, `pc.coarse` and
-`pc.smooth`; set-up as `setup.discretization`, `setup.prepare`,
+`pc.smooth`, on 'sch' with `pc.fhat` and `pc.shat` around its two
+cycles; set-up as `setup.discretization`, `setup.prepare`,
 `setup.assemble`, `setup.operator` (with `setup.coarse` and
-`setup.cheby_lmax`), `setup.residual_ops` and `stokes`.
+`setup.cheby_lmax`; on 'sch' `setup.schur` with a `setup.schur.<stage>`
+span per stage of its algebra), `setup.residual_ops` and `stokes`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -255,8 +258,8 @@ class SchurPrep:
     shape: str                  # 'lower' | 'full'
     nb: int
     nbp: int
-    # host-clock seconds of the preparation's stages (empty when carried
-    # over from the JAX package)
+    # host-clock seconds of the preparation's stages, by the name of each
+    # stage's span (empty when carried over from the JAX package)
     seconds: dict = dataclasses.field(default_factory=dict)
 
 
@@ -509,6 +512,7 @@ class NavierStokesSolver:
                                       coarse, cs)
         return self._maybe_append_cheby(prep)
 
+    @spanned("setup.schur")
     def _prepare_operator_schur(self, dia_data: torch.Tensor) -> SchurPrep:
         """BC-applied DIA data -> the 'sch' prep.
 
@@ -518,7 +522,11 @@ class NavierStokesSolver:
         (`solvers/schur.py`), as in the JAX package.  The device half is
         plane stacks for K1: the 4x4 operator p4 (the GMRES matvec and the
         residual), F (3x3), A_pu = -B (1x3), A_up = B^T (3x1, 'full'
-        only) and S_hat (1x1 on its own offsets)."""
+        only) and S_hat (1x1 on its own offsets).  Each stage runs in a
+        span `setup.schur.<stage>`, and its seconds in `SchurPrep.seconds`,
+        under the span's name, run from the previous stage's end to its
+        own: the stages tile the preparation, each span inside its
+        stage."""
         cfgk = self.cfg.krylov
         offsets = self.disc.dia_pattern.offsets
         nb, nbp, noffs = self.disc.nv, self._nbp, self._noffs
@@ -540,62 +548,70 @@ class NavierStokesSolver:
         seconds = {}
         last = time.perf_counter()
 
-        def lap(stage: str) -> None:
+        @contextlib.contextmanager
+        def stage(name: str):
             nonlocal last
+            with span(name):
+                yield
             now = time.perf_counter()
-            seconds[stage], last = now - last, now
+            seconds[name], last = now - last, now
 
-        p4 = extract_planes(offsets, dia_data, nb, node_offsets=noffs,
-                            nbp=nbp)
-        dd = dia_data.cpu().numpy()
-        lap("operator planes, data to the host")
-        a_blk = sch.split_blocks(offsets, dd, nb, noffs)
-        fd_inv = sch.diag_f_inverse(a_blk, noffs)
-        lap("block view, diag(F)^-1")
+        with stage("setup.schur.to_host"):
+            p4 = extract_planes(offsets, dia_data, nb, node_offsets=noffs,
+                                nbp=nbp)
+            dd = dia_data.cpu().numpy()
+        with stage("setup.schur.blocks"):
+            a_blk = sch.split_blocks(offsets, dd, nb, noffs)
+            fd_inv = sch.diag_f_inverse(a_blk, noffs)
 
-        # Sub-block planes in `plane_terms` order, term j = iD * n_in + b:
-        # F[a, j] = A_blk[iD, :, a, b] and A_pu[0, j] = A_blk[iD, :, 3, b]
-        # (n_in = 3), A_up[a, iD] = A_blk[iD, :, a, 3] (n_in = 1).
-        n_d = len(noffs)
-        pf = a_blk[:, :, :3, :3].transpose(2, 0, 3, 1).reshape(3, 3 * n_d, nb)
-        pb = a_blk[:, :, 3, :3].transpose(0, 2, 1).reshape(1, 3 * n_d, nb)
-        p_g = None
-        if cfgk.schur_shape == "full":
-            p_g = planes(a_blk[:, :, :3, 3].transpose(2, 0, 1))
-        # (nb, 3, 3) -> (9, nbp): row 3a+b holds diag(F)^{-1}[:, a, b]
-        d9 = padded(fd_inv.transpose(1, 2, 0).reshape(9, nb))
-        lap("sub-block planes")
+        with stage("setup.schur.planes"):
+            # Sub-block planes in `plane_terms` order, term j = iD * n_in +
+            # b: F[a, j] = A_blk[iD, :, a, b] and A_pu[0, j] =
+            # A_blk[iD, :, 3, b] (n_in = 3), A_up[a, iD] = A_blk[iD, :, a,
+            # 3] (n_in = 1).
+            n_d = len(noffs)
+            pf = a_blk[:, :, :3, :3].transpose(2, 0, 3, 1).reshape(
+                3, 3 * n_d, nb)
+            pb = a_blk[:, :, 3, :3].transpose(0, 2, 1).reshape(
+                1, 3 * n_d, nb)
+            p_g = None
+            if cfgk.schur_shape == "full":
+                p_g = planes(a_blk[:, :, :3, 3].transpose(2, 0, 1))
+            # (nb, 3, 3) -> (9, nbp): row 3a+b holds diag(F)^{-1}[:, a, b]
+            d9 = padded(fd_inv.transpose(1, 2, 0).reshape(9, nb))
 
-        s_offs, s_np = sch.build_schur_dia(a_blk, noffs, nb, fd_inv)
-        sd = s_np[s_offs.index(0)].copy()
-        sd[sd == 0.0] = 1.0
-        sdinv = 1.0 / sd
-        lap("S_hat")
-        vc_inv = sch.velocity_coarse_inverse(cs, a_blk, noffs,
-                                             shift=cfgk.coarse_shift)
-        sc_inv = sch.scalar_coarse_inverse(cs, s_offs, s_np,
-                                           shift=cfgk.coarse_shift)
-        lap("coarse inverses")
+        with stage("setup.schur.s_hat"):
+            s_offs, s_np = sch.build_schur_dia(a_blk, noffs, nb, fd_inv)
+            sd = s_np[s_offs.index(0)].copy()
+            sd[sd == 0.0] = 1.0
+            sdinv = 1.0 / sd
+        with stage("setup.schur.coarse"):
+            vc_inv = sch.velocity_coarse_inverse(cs, a_blk, noffs,
+                                                 shift=cfgk.coarse_shift)
+            sc_inv = sch.scalar_coarse_inverse(cs, s_offs, s_np,
+                                               shift=cfgk.coarse_shift)
 
         def interval(lmax: float, deg: int) -> tuple:
             a, b = cfgk.coarse_cheby_fraction * lmax, 1.05 * lmax
             return (float((a + b) / 2), float((b - a) / 2), int(deg))
 
-        cheby_s = cheby_v = None
-        if cfgk.schur_cheby:
-            cheby_s = interval(sch.power_lmax_schur(s_offs, s_np, sdinv),
-                               cfgk.schur_cheby)
-        if cfgk.schur_v_cheby:
-            cheby_v = interval(sch.power_lmax_velocity(a_blk, noffs, fd_inv),
-                               cfgk.schur_v_cheby)
-        lap("power iterations")
-        prep = SchurPrep(
-            noffs, p4, planes(pf), planes(pb), p_g, d9, s_offs,
-            planes(s_np[None]), padded(sdinv),
-            torch.as_tensor(vc_inv).to(dev, dtype),
-            torch.as_tensor(sc_inv).to(dev, dtype), cs, cheby_v, cheby_s,
-            cfgk.schur_shape, nb, nbp, seconds)
-        lap("to the device")
+        with stage("setup.schur.power"):
+            cheby_s = cheby_v = None
+            if cfgk.schur_cheby:
+                cheby_s = interval(
+                    sch.power_lmax_schur(s_offs, s_np, sdinv),
+                    cfgk.schur_cheby)
+            if cfgk.schur_v_cheby:
+                cheby_v = interval(
+                    sch.power_lmax_velocity(a_blk, noffs, fd_inv),
+                    cfgk.schur_v_cheby)
+        with stage("setup.schur.to_device"):
+            prep = SchurPrep(
+                noffs, p4, planes(pf), planes(pb), p_g, d9, s_offs,
+                planes(s_np[None]), padded(sdinv),
+                torch.as_tensor(vc_inv).to(dev, dtype),
+                torch.as_tensor(sc_inv).to(dev, dtype), cs, cheby_v,
+                cheby_s, cfgk.schur_shape, nb, nbp, seconds)
         return prep
 
     @spanned("setup.coarse")
@@ -850,10 +866,12 @@ class NavierStokesSolver:
             zc = prep.sc_inv @ sch.restrict_planes_n(cs, rp, nbp, 1)
             return sch.prolong_planes_n(cs, zc, nbp, nb, 1)
 
+        @wrap("pc.fhat")
         def fhat(ru):
             z = coarse_v(ru)
             return z + smooth_v(ru - apply_F(z))
 
+        @wrap("pc.shat")
         def shat(rp):
             z = coarse_s(rp)
             return z + smooth_s(rp - apply_S(z))

@@ -10,7 +10,8 @@ by running it with the launch counters left as they were (a replay does
 not pass through them).  On the card (`cuda` marker): graphed against
 eager, bit for bit, on 'tlp' at matrix 6 (GMRES solves that restart,
 converge early and break down, and a Newton step with its launch
-counts) and on 'tl', 'sch' and 'bj' on a small mesh."""
+counts) and on 'tl', 'sch' and 'bj' on a small mesh; and on 'sch' at
+matrix 9, the deployment the benchmark's Schur cell runs."""
 
 import dataclasses
 
@@ -419,3 +420,25 @@ def test_graphed_tiers_equal_eager_on_the_card(krylov, monkeypatch):
         solver, u0, monkeypatch)
     assert torch.equal(ug, ue) and torch.equal(dg, de) and hg == he
     assert cg == ce and ng[1] > 0
+
+
+@pytest.mark.cuda
+def test_graphed_schur_step_equals_eager_at_matrix_9_on_the_card(
+        monkeypatch):
+    """Matrix 9 (998,784 DoF) as `run.py --matrix-id 9` builds it, 'auto'
+    resolving to 'sch': after a step that captures, a step graphed and
+    the same step eager equal bit for bit, with the same Newton and GMRES
+    counts and launch counts; every graphed inner iteration replays, none
+    captures."""
+    dev = _card()
+    solver = NavierStokesSolver(scaling_series_mesh(9), f32_cfg(),
+                                device=dev)
+    u0 = solver.stokes_init()
+    assert solver.prep_kind == "sch"
+    captures = profiling.graph_captures
+    (ug, dg, hg, cg, ng), (ue, de, he, ce, ne) = _steps_both_ways(
+        solver, u0, monkeypatch, steps=1)
+    assert torch.equal(ug, ue) and torch.equal(dg, de) and hg == he
+    assert cg == ce and ne == (0, 0)
+    # the first step's first solve passes k = 29: it captures all 30
+    assert ng == (0, hg[0][1]) and profiling.graph_captures - captures == 30

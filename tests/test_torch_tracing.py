@@ -3,7 +3,8 @@ f32 flagship path ('tlp') at the CLI's f32 defaults, on channel(3, 2, 2):
 off by default and then recording nothing, the span tree of a step, the
 count of host reads a step makes, the spans in a `torch.profiler` trace,
 and the span tree `python -m navierstokes_tpu_torch.run --profile`
-prints."""
+prints; and the spans the pressure-Schur tier ('sch') adds: its set-up
+stages and its two cycles."""
 
 import dataclasses
 import json
@@ -33,9 +34,19 @@ TLP_SPANS = {
 }
 
 
-def f32_cfg(restart: int = 30) -> NSConfig:
-    """The CLI's float32 config (run.py), GMRES restarted every `restart`."""
-    kr = dataclasses.replace(run.default_f32_krylov(), restart=restart)
+# the spans the 'sch' set-up adds: one per stage of its host algebra
+SCHUR_STAGES = {
+    "setup.schur.to_host", "setup.schur.blocks", "setup.schur.planes",
+    "setup.schur.s_hat", "setup.schur.coarse", "setup.schur.power",
+    "setup.schur.to_device",
+}
+
+
+def f32_cfg(restart: int = 30, **krylov) -> NSConfig:
+    """The CLI's float32 config (run.py), GMRES restarted every `restart`,
+    with `krylov` changed."""
+    kr = dataclasses.replace(run.default_f32_krylov(), restart=restart,
+                             **krylov)
     return NSConfig(dt=1e-3, reynolds=300.0, delta=0.05, dtype="float32",
                     newton=NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
                                         du_tol=float("inf")),
@@ -193,3 +204,83 @@ def test_run_profile_prints_the_span_tree(capsys):
     assert TLP_SPANS <= set(rows)
     assert rows["step"].startswith("  step")
     assert rows["time_loop"].split()[1] == "1"
+
+
+# -- the pressure-Schur tier ---------------------------------------------------
+
+def schur_cfg() -> NSConfig:
+    """The 'sch' tier as 'auto' resolves it above 150k rows (a degree-2
+    Chebyshev velocity smoother), forced on channel(3, 2, 2)."""
+    return f32_cfg(preconditioner="schur", coarse_agg=4, schur_v_cheby=2)
+
+
+@pytest.fixture(scope="module")
+def schur_traced():
+    """A 'sch' solver prepared, Stokes-initialized and stepped once with
+    spans on: (solver, log snapshots after the Newton preparation, after
+    Stokes and after the step, the step's state)."""
+    log = profiling.enable()
+    try:
+        solver = NavierStokesSolver(MESH, schur_cfg(), device=CPU)
+        solver._ensure_prepared()
+        prepared = log.snapshot()
+        u0 = solver.stokes_init()
+        stokes = log.snapshot()
+        u1, _, stats = solver.step(u0, u0, torch.zeros_like(u0))
+    finally:
+        profiling.disable()
+    assert solver.prep_kind == "sch" and stats.converged
+    return solver, prepared, stokes, log.snapshot(), (u0, u1)
+
+
+def test_schur_set_up_spans_lie_under_the_operator_span(schur_traced):
+    """`setup.schur` and a child per stage under `setup.operator`, once in
+    the Newton preparation and once in the Stokes one."""
+    _, prepared, stokes, _, _ = schur_traced
+    for snap, n in ((prepared, 1), (stokes, 2)):
+        assert snap[("setup.schur", "setup.operator")][0] == n
+        assert {name for name, parent in snap
+                if parent == "setup.schur"} == SCHUR_STAGES
+        for stage in SCHUR_STAGES:
+            assert snap[(stage, "setup.schur")][0] == n
+    assert prepared[("setup.operator", "setup.prepare")][0] == 1
+    assert ("setup.operator", "stokes") not in prepared
+    assert stokes[("setup.operator", "stokes")][0] == 1
+
+
+def test_schur_stage_seconds_are_the_spans_one_for_one(schur_traced):
+    """`SchurPrep.seconds` holds one entry per stage span, under its name;
+    each span lies inside its stage's seconds, and the stages inside
+    `setup.schur` (the Newton preparation's, read before Stokes)."""
+    solver, prepared, _, _, _ = schur_traced
+    seconds = solver._exact_prep.seconds
+    assert set(seconds) == SCHUR_STAGES
+    for stage, s in seconds.items():
+        assert 0 <= prepared[(stage, "setup.schur")][1] <= s
+    assert sum(seconds.values()) <= \
+        prepared[("setup.schur", "setup.operator")][1]
+
+
+def test_schur_cycles_have_spans_inside_the_preconditioner(schur_traced):
+    """`pc.fhat` and `pc.shat` under `pc.apply`, once each an apply (the
+    'lower' shape), each with its coarse GEMV and smoother inside."""
+    _, _, _, snap, _ = schur_traced
+    applies = sum(n for (name, _), (n, _, _) in snap.items()
+                  if name == "pc.apply")
+    for cycle in ("pc.fhat", "pc.shat"):
+        assert snap[(cycle, "pc.apply")][0] == applies > 0
+        for child in ("pc.coarse", "pc.smooth"):
+            assert snap[(child, cycle)][0] == applies
+    assert ("pc.coarse", "pc.apply") not in snap
+
+
+def test_schur_answers_are_the_same_with_spans_off(schur_traced):
+    """Stokes and one step with spans off equal the traced ones bit for
+    bit."""
+    solver, _, _, _, (u0_on, u1_on) = schur_traced
+    assert profiling.active() is None
+    off = NavierStokesSolver(MESH, schur_cfg(), disc=solver.disc,
+                             device=CPU)
+    u0 = off.stokes_init()
+    u1, _, _ = off.step(u0, u0, torch.zeros_like(u0))
+    assert torch.equal(u0, u0_on) and torch.equal(u1, u1_on)
