@@ -31,6 +31,10 @@ The prepared-operator kinds are those of the JAX package's
   - 'defl' (`DeflatedPrep`): a recycled pair (U, Q) around any of the
     first four but 'sch' (`solvers/deflation.py`, deflation_k > 0).
 
+Each kind's preconditioner is composed from the cycle pieces of
+`solvers/cycle.py` (block D^{-1}, smoother, two-grid cycle, plane coarse
+correction, Neumann series), as are the distributed solver's.
+
 The scalar-DIA applies (A, S, the 7-diagonal D^{-1}, the multilevel
 coarse level, the scalar residual) run kernel K2 (`ops/dia.py`).  With
 `cgs2` 'pallas' or 'pallas_comp', every GMRES solve (Stokes and Newton, on
@@ -110,6 +114,7 @@ from navierstokes_tpu_torch.utils.profiling import (
     spanned,
     wrap,
 )
+from navierstokes_tpu_torch.solvers import cycle
 from navierstokes_tpu_torch.solvers.cg import cg
 from navierstokes_tpu_torch.solvers.coarse import (
     CoarseSpace,
@@ -120,10 +125,8 @@ from navierstokes_tpu_torch.solvers.coarse import (
     coarse_operator_inverse_dia,
     linear_coarse_inverse_dia,
     prolong,
-    prolong_planes,
     prolong_planes_linear,
     restrict,
-    restrict_planes,
     restrict_planes_linear,
     smoothed_coarse_inverse_dia,
 )
@@ -140,13 +143,12 @@ from navierstokes_tpu_torch.solvers.gmres import (
 )
 from navierstokes_tpu_torch.solvers.sstep import ca_gmres, newton_shifts
 from navierstokes_tpu_torch.sparse.dia import (
+    DINV_OFFSETS,
     block_diag_to_dia,
     diag_blocks_from_dia,
     scale_rows_dia,
     zero_rows_dia,
 )
-
-DINV_OFFSETS = tuple(range(-3, 4))    # the block-diagonal D^{-1} in DIA form
 
 
 class NewtonStats(NamedTuple):
@@ -591,19 +593,16 @@ class NavierStokesSolver:
             sc_inv = sch.scalar_coarse_inverse(cs, s_offs, s_np,
                                                shift=cfgk.coarse_shift)
 
-        def interval(lmax: float, deg: int) -> tuple:
-            a, b = cfgk.coarse_cheby_fraction * lmax, 1.05 * lmax
-            return (float((a + b) / 2), float((b - a) / 2), int(deg))
-
+        frac = cfgk.coarse_cheby_fraction
         with stage("setup.schur.power"):
             cheby_s = cheby_v = None
             if cfgk.schur_cheby:
-                cheby_s = interval(
-                    sch.power_lmax_schur(s_offs, s_np, sdinv),
+                cheby_s = cycle.cheby_interval(
+                    sch.power_lmax_schur(s_offs, s_np, sdinv), frac,
                     cfgk.schur_cheby)
             if cfgk.schur_v_cheby:
-                cheby_v = interval(
-                    sch.power_lmax_velocity(a_blk, noffs, fd_inv),
+                cheby_v = cycle.cheby_interval(
+                    sch.power_lmax_velocity(a_blk, noffs, fd_inv), frac,
                     cfgk.schur_v_cheby)
         with stage("setup.schur.to_device"):
             prep = SchurPrep(
@@ -663,10 +662,9 @@ class NavierStokesSolver:
         deg = self.cfg.krylov.coarse_cheby
         if not deg:
             return prep
-        lmax = self._estimate_smoother_lmax(prep)
-        frac = self.cfg.krylov.coarse_cheby_fraction
-        a, b = frac * lmax, 1.05 * lmax
-        prep.cheby = (float((a + b) / 2), float((b - a) / 2), int(deg))
+        prep.cheby = cycle.cheby_interval(
+            self._estimate_smoother_lmax(prep),
+            self.cfg.krylov.coarse_cheby_fraction, deg)
         return prep
 
     @spanned("setup.cheby_lmax")
@@ -698,11 +696,7 @@ class NavierStokesSolver:
         level-1 system is solved by two-grid cycles (dense level-2
         correction, then damped level-1 block-Jacobi sweeps)."""
         if isinstance(coarse, (DenseCoarse, DenseLinearCoarse)):
-            ac_inv = coarse.ac_inv
-
-            def dense_solve(rc):
-                return ac_inv @ rc
-            return dense_solve
+            return cycle.dense_solve(coarse.ac_inv)
 
         kr = self.cfg.krylov
         c_off, ac1, cs2 = coarse.offsets, coarse.ac1, coarse.cs2
@@ -723,32 +717,6 @@ class NavierStokesSolver:
             return zc
         return ml_solve
 
-    @staticmethod
-    def _make_smoother(apply_A, apply_Dinv, cheby):
-        """Post-smoother of the two-grid cycle: one Jacobi application, or
-        the degree-`deg` Chebyshev polynomial in G = D^{-1}A over
-        [theta - delta, theta + delta] (Adams/Brezina/Hu/Tuminaro 2003)."""
-        if not cheby:
-            return wrap("pc.smooth")(apply_Dinv)
-        theta, delta, deg = cheby
-        sigma1 = theta / delta
-
-        @wrap("pc.smooth")
-        def smooth(s):
-            dk = apply_Dinv(s) * (1.0 / theta)
-            x = dk
-            rho_prev = 1.0 / sigma1
-            for _ in range(deg - 1):
-                rk = s - apply_A(x)
-                rho = 1.0 / (2.0 * sigma1 - rho_prev)
-                dk = (rho * rho_prev) * dk + (2.0 * rho / delta) * \
-                    apply_Dinv(rk)
-                x = x + dk
-                rho_prev = rho
-            return x
-
-        return smooth
-
     @no_tf32_operators
     def _prep_operators(self, prep: Prep):
         """Prep -> (matvec, b_prep, parts): the left-preconditioned operator
@@ -764,16 +732,12 @@ class NavierStokesSolver:
         if isinstance(prep, PlanePrep):
             noffs, p4, nb, nbp, cs = (prep.node_offsets, prep.p4, prep.nb,
                                       prep.nbp, prep.cs)
-            d3 = prep.d16.reshape(4, 4, nbp)
 
             @wrap("op.apply")
             def apply_A(x):
                 return spmv_plane(noffs, p4, x, nb=nb)
 
-            def apply_Dinv(r):
-                # block-diagonal D^{-1}: 16 elementwise plane multiplies
-                return (d3 * r.reshape(1, 4, nbp)).sum(1).reshape(-1)
-
+            apply_Dinv = cycle.block_dinv(prep.d16, 4)
             if isinstance(prep.coarse, DenseLinearCoarse):
                 w = prep.coarse.w
 
@@ -781,9 +745,7 @@ class NavierStokesSolver:
                     zc = coarse_solve(restrict_planes_linear(cs, r, nbp, w))
                     return prolong_planes_linear(cs, zc, nbp, nb, w)
             else:
-                def coarse_p0(r):
-                    zc = coarse_solve(restrict_planes(cs, r, nbp))
-                    return prolong_planes(cs, zc, nbp, nb)
+                coarse_p0 = cycle.plane_coarse(cs, coarse_solve, nbp, nb, 4)
         else:
             cs = prep.cs
 
@@ -809,19 +771,8 @@ class NavierStokesSolver:
                 z = z - om * apply_Dinv(apply_A(z))
             return z
 
-        smooth = self._make_smoother(apply_A, apply_Dinv, prep.cheby)
-
-        @wrap("pc.apply")
-        def minv(r):
-            # multiplicative two-grid: coarse correction, then smoothing
-            z = coarse(r)
-            return z + smooth(r - apply_A(z))
-
-        def matvec(x):
-            return minv(apply_A(x))
-
-        return matvec, minv, {"apply_A": apply_A, "apply_Dinv": apply_Dinv,
-                              "coarse": coarse, "minv": minv}
+        return cycle.two_level_operators(apply_A, apply_Dinv, coarse,
+                                         prep.cheby)
 
     def _schur_operators(self, prep: SchurPrep):
         """'sch': GMRES on M^{-1} A with M the block lower-triangular
@@ -830,7 +781,6 @@ class NavierStokesSolver:
         cycles: the dense coarse GEMV, then the smoother.  Every sub-block
         apply is one K1 launch."""
         noffs, nb, nbp, cs = prep.node_offsets, prep.nb, prep.nbp, prep.cs
-        d9 = prep.d9.reshape(3, 3, nbp)
 
         @wrap("op.apply")
         def apply_A(x):
@@ -846,35 +796,19 @@ class NavierStokesSolver:
             return spmv_planes(prep.s_offsets, prep.s_planes, xp, n_in=1,
                                nb=nb)
 
-        def dinv_f(ru):
-            # the 3x3 block-diagonal inverse: 9 elementwise plane multiplies
-            return (d9 * ru.reshape(1, 3, nbp)).sum(1).reshape(-1)
-
         def dinv_s(rp):
             return prep.s_dinv * rp
 
-        smooth_v = self._make_smoother(apply_F, dinv_f, prep.cheby_v)
-        smooth_s = self._make_smoother(apply_S, dinv_s, prep.cheby_s)
+        def block_cycle(apply_B, dinv, cheby, ac_inv, n, name):
+            coarse = wrap("pc.coarse")(cycle.plane_coarse(
+                cs, cycle.dense_solve(ac_inv), nbp, nb, n))
+            return cycle.two_grid(coarse, cycle.smoother(apply_B, dinv, cheby),
+                                  apply_B, name)
 
-        @wrap("pc.coarse")
-        def coarse_v(ru):
-            zc = prep.vc_inv @ sch.restrict_planes_n(cs, ru, nbp, 3)
-            return sch.prolong_planes_n(cs, zc, nbp, nb, 3)
-
-        @wrap("pc.coarse")
-        def coarse_s(rp):
-            zc = prep.sc_inv @ sch.restrict_planes_n(cs, rp, nbp, 1)
-            return sch.prolong_planes_n(cs, zc, nbp, nb, 1)
-
-        @wrap("pc.fhat")
-        def fhat(ru):
-            z = coarse_v(ru)
-            return z + smooth_v(ru - apply_F(z))
-
-        @wrap("pc.shat")
-        def shat(rp):
-            z = coarse_s(rp)
-            return z + smooth_s(rp - apply_S(z))
+        fhat = block_cycle(apply_F, cycle.block_dinv(prep.d9, 3),
+                           prep.cheby_v, prep.vc_inv, 3, "pc.fhat")
+        shat = block_cycle(apply_S, dinv_s, prep.cheby_s, prep.sc_inv, 1,
+                           "pc.shat")
 
         @wrap("pc.apply")
         def minv(r):
@@ -894,30 +828,16 @@ class NavierStokesSolver:
                               "shat": shat, "minv": minv}
 
     def _bj_operators(self, prep: BlockJacobiPrep):
-        """'bj': GMRES on the Neumann-boosted S = D^{-1} A; each term of
-        the order-`neumann_order` series costs one more apply of S."""
-        order = self.cfg.krylov.neumann_order
-
+        """'bj': GMRES on the Neumann-boosted S = D^{-1} A."""
         @wrap("op.apply")
         def apply_S(x):
             return self._spmv(prep.s_offsets, prep.s_data, x)
 
-        @wrap("pc.apply")
-        def neumann(r):
-            acc = r
-            cur = r
-            for _ in range(order):
-                cur = cur - apply_S(cur)
-                acc = acc + cur
-            return acc
+        def apply_Dinv(r):
+            return self._spmv(DINV_OFFSETS, prep.invd, r)
 
-        def matvec(x):
-            return neumann(apply_S(x))
-
-        def b_prep(rhs):
-            return neumann(self._spmv(DINV_OFFSETS, prep.invd, rhs))
-
-        return matvec, b_prep, {"apply_S": apply_S, "neumann": neumann}
+        return cycle.neumann_operators(apply_S, apply_Dinv,
+                                       self.cfg.krylov.neumann_order)
 
     @spanned("krylov.solve")
     @no_tf32

@@ -51,7 +51,6 @@ from navierstokes_tpu_torch.config import NSConfig
 from navierstokes_tpu_torch.mesh.core import Mesh
 from navierstokes_tpu_torch.mesh.ordering import best_ordering, reorder_mesh
 from navierstokes_tpu_torch.model.navier_stokes import (
-    DINV_OFFSETS,
     BlockJacobiPrep,
     DenseCoarse,
     MultilevelCoarse,
@@ -79,10 +78,23 @@ from navierstokes_tpu_torch.parallel.partitioned import (
     shard_rows,
     split_rows,
 )
-from navierstokes_tpu_torch.solvers.coarse import CoarseSpace
+from navierstokes_tpu_torch.solvers.coarse import (
+    CoarseSpace,
+    build_aggregates,
+    prolong,
+    prolong_planes,
+    restrict,
+    restrict_planes,
+)
+from navierstokes_tpu_torch.solvers.cycle import (
+    block_dinv,
+    neumann_operators,
+    two_level_operators,
+)
 from navierstokes_tpu_torch.solvers.gmres import GMRESResult, gmres
 from navierstokes_tpu_torch.solvers.sstep import ca_gmres
 from navierstokes_tpu_torch.solvers.vectors import Shards
+from navierstokes_tpu_torch.sparse.dia import DINV_OFFSETS
 from navierstokes_tpu_torch.utils.precision import no_tf32, no_tf32_operators
 from navierstokes_tpu_torch.utils.profiling import spanned, wrap
 
@@ -316,13 +328,13 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
 
     @no_tf32_operators
     def _prep_operators(self, prep: ShardedPrep):
-        """(matvec, b_prep, parts) on shards, the distributed counterpart
-        of the single-device operators with the same algebra: 'bj' the
-        Neumann-boosted S, 'tl' and 'tlp' the two-grid cycle (coarse
-        correction, then one Jacobi application)."""
+        """(matvec, b_prep, parts) on shards, composed from the
+        single-device operators' pieces (`solvers/cycle.py`) on `Shards`:
+        'bj' the Neumann-boosted S, 'tl' and 'tlp' the two-grid cycle
+        (coarse correction, then one Jacobi application)."""
         plain = self.cfg.krylov.spmv == "xla"
         if prep.kind == "tlp":
-            d3 = [d.reshape(4, 4, prep.L) for d in prep.dinv.parts]
+            dinvs = [block_dinv(d, 4) for d in prep.dinv.parts]
 
             @wrap("op.apply")
             def apply_A(x):
@@ -330,9 +342,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                                               nb=prep.n)
 
             def apply_Dinv(r):
-                # block-diagonal D^{-1}: 16 elementwise plane multiplies
-                return Shards((d * v.reshape(1, 4, -1)).sum(1).reshape(-1)
-                              for d, v in zip(d3, r.parts))
+                return Shards(f(v) for f, v in zip(dinvs, r.parts))
         else:
             @wrap("op.apply")
             def apply_A(x):
@@ -344,70 +354,41 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                                             plain=plain)
 
         if prep.kind == "bj":
-            order = self.cfg.krylov.neumann_order
-
-            @wrap("pc.apply")
-            def neumann(r):
-                acc = r
-                cur = r
-                for _ in range(order):
-                    cur = cur - apply_A(cur)
-                    acc = acc + cur
-                return acc
-
-            def matvec(x):
-                return neumann(apply_A(x))
-
-            def b_prep(rhs):
-                return neumann(apply_Dinv(rhs))
-
-            return matvec, b_prep, {"apply_S": apply_A, "neumann": neumann}
-
-        coarse = self._coarse_correction(prep)
-        smooth = wrap("pc.smooth")(apply_Dinv)
-
-        @wrap("pc.apply")
-        def minv(r):
-            z = coarse(r)
-            return z + smooth(r - apply_A(z))
-
-        def matvec(x):
-            return minv(apply_A(x))
-
-        return matvec, minv, {"apply_A": apply_A, "apply_Dinv": apply_Dinv,
-                              "coarse": coarse, "minv": minv}
+            return neumann_operators(apply_A, apply_Dinv,
+                                     self.cfg.krylov.neumann_order)
+        return two_level_operators(apply_A, apply_Dinv,
+                                   self._coarse_correction(prep), None)
 
     def _coarse_correction(self, prep: ShardedPrep):
         """r -> P A_c^{-1} R r on shards: each shard sums its own
-        aggregates, the coarse residual is gathered onto every device, the
+        aggregates (the single-device transfers over the shard's own
+        aggregates), the coarse residual is gathered onto every device, the
         dense inverse's row block (or the replicated multilevel cycle)
         gives the shard's own coarse values, broadcast back to its rows;
         padding rows stay exact zeros."""
-        agg, c = prep.cs.agg_size, prep.coarse
-        P, plane = self.n_devices, prep.kind == "tlp"
-        live = shard_rows(prep.n, prep.L, P)
+        c, L, P = prep.coarse, prep.L, self.n_devices
+        plane = prep.kind == "tlp"
+        live = shard_rows(prep.n, L, P)
         chunk = c.nc_pad // P
         solves = {} if c.replicas is None else {
             dev: self._make_coarse_solve(rep)
             for dev, rep in c.replicas.items()}
+        # a shard's own aggregates: L nodes on 'tlp', else L scalar rows
+        cs = build_aggregates(L if plane else L // 4, prep.cs.agg_size)
 
-        def restrict(r):
-            if plane:               # coarse dof 4g + c of aggregate g
-                return r.reshape(4, -1, agg).sum(-1).T.reshape(-1)
-            return r.reshape(-1, agg, 4).sum(1).reshape(-1)
+        def restrict_shard(r):
+            return restrict_planes(cs, r, L, 4) if plane else restrict(cs, r)
 
-        def prolong(zc, n):
+        def prolong_shard(zc, n):
             if plane:
-                z = zc.reshape(-1, 4).T.repeat_interleave(agg, dim=1)
-                z[:, n:] = 0
-            else:
-                z = zc.reshape(-1, 1, 4).expand(-1, agg, 4).reshape(-1)
-                z[n:] = 0
-            return z.reshape(-1)
+                return prolong_planes(cs, zc, L, n, 4)
+            z = prolong(cs, zc)
+            z[n:] = 0               # the shard's padding rows
+            return z
 
         @wrap("pc.coarse")
         def coarse(r):
-            rcs = [restrict(a) for a in r.parts]
+            rcs = [restrict_shard(a) for a in r.parts]
             rc = {dev: all_gather(rcs, dev) for dev in dict.fromkeys(
                 self.devices)}
             if c.rows is not None:
@@ -419,7 +400,7 @@ class DistributedNavierStokesSolver(NavierStokesSolver):
                     for dev, solve in solves.items()}
                 zcs = [full[dev][s * chunk:(s + 1) * chunk]
                        for s, dev in enumerate(self.devices)]
-            return Shards(prolong(zc, n) for zc, n in zip(zcs, live))
+            return Shards(prolong_shard(zc, n) for zc, n in zip(zcs, live))
 
         return coarse
 

@@ -7,8 +7,12 @@ once per prepared operator (each apply is then a reshape-sum restriction,
 one (nc, nc) GEMV and a broadcast prolongation), or, when nc exceeds
 `coarse_dense_max`, kept sparse in scalar-DIA form (`coarse_operator_dia`)
 and solved by a two-grid cycle one level down (the multilevel path).
-Restriction and prolongation exist for the component-plane layout
-(`*_planes`) and for interleaved vectors (`restrict`, `prolong`).
+Restriction and prolongation exist for the component-plane layout of
+n components (`*_planes`: 4 on 'tlp', 3 and 1 for the Schur tier's
+velocity and pressure cycles) and for interleaved vectors (`restrict`,
+`prolong`).  The host helpers of the dense coarse matrices
+(`agg_diag_add`, `node_block_view`, `pin_inert`) serve this module and
+the Schur tier's algebra (`solvers/schur.py`) alike.
 
 Two variants of the dense coarse level, both built on the host in float64:
 the per-aggregate linear basis {1, x, y, z} (`build_linear_weights`,
@@ -26,6 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from navierstokes_tpu_torch.ops.plane_dia import node_offsets_from_scalar
 from navierstokes_tpu_torch.ops.scatter import index_add_fixed_order
 
 
@@ -65,29 +70,33 @@ def prolong(cs: CoarseSpace, rc: torch.Tensor) -> torch.Tensor:
     return zf.reshape(-1)[:4 * cs.nb]
 
 
-def restrict_planes(cs: CoarseSpace, rp: torch.Tensor,
-                    nbp: int) -> torch.Tensor:
-    """R r on a plane-major padded fine vector -> interleaved coarse (nc,).
+def _check_planes(cs: CoarseSpace, nbp: int) -> None:
+    if cs.nb_pad > nbp:
+        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
+                         f"layout's nbp={nbp}")
+
+
+def restrict_planes(cs: CoarseSpace, rp: torch.Tensor, nbp: int,
+                    n_comp: int) -> torch.Tensor:
+    """R r: plane-major padded (n_comp * nbp,) -> coarse (n_comp * n_agg,),
+    aggregate-major then component (the order of the dense coarse
+    inverses; n_comp = 4 gives the interleaved order of `restrict`).
 
     Rows nb..nbp of the plane vectors are zero throughout the solve, so the
     aggregation padding (nb..nb_pad) adds nothing."""
-    if cs.nb_pad > nbp:
-        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
-                         f"layout's nbp={nbp}")
-    r2 = rp.reshape(4, nbp)[:, :cs.nb_pad]
-    rc = r2.reshape(4, cs.n_agg, cs.agg_size).sum(-1)     # (4, n_agg)
+    _check_planes(cs, nbp)
+    r2 = rp.reshape(n_comp, nbp)[:, :cs.nb_pad]
+    rc = r2.reshape(n_comp, cs.n_agg, cs.agg_size).sum(-1)
     return rc.T.reshape(-1)
 
 
-def prolong_planes(cs: CoarseSpace, zc: torch.Tensor, nbp: int,
-                   nb: int) -> torch.Tensor:
-    """P zc: interleaved coarse (nc,) -> plane-major padded fine vector,
+def prolong_planes(cs: CoarseSpace, zc: torch.Tensor, nbp: int, nb: int,
+                   n_comp: int) -> torch.Tensor:
+    """P zc: coarse (n_comp * n_agg,) -> plane-major padded (n_comp * nbp,),
     with the padding rows nb..nbp kept at exact zero."""
-    if cs.nb_pad > nbp:
-        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
-                         f"layout's nbp={nbp}")
-    z2 = zc.reshape(cs.n_agg, 4).T                        # (4, n_agg)
-    out = torch.zeros((4, nbp), dtype=zc.dtype, device=zc.device)
+    _check_planes(cs, nbp)
+    z2 = zc.reshape(cs.n_agg, n_comp).T
+    out = torch.zeros((n_comp, nbp), dtype=zc.dtype, device=zc.device)
     out[:, :nb] = z2.repeat_interleave(cs.agg_size, dim=1)[:, :nb]
     return out.reshape(-1)
 
@@ -212,10 +221,11 @@ def build_linear_weights(cs: CoarseSpace, coords: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(Q.transpose(2, 0, 1).reshape(4, nb_pad))
 
 
-def _pin_inert(out: np.ndarray, shift: float) -> np.ndarray:
+def pin_inert(out: np.ndarray, shift: float) -> np.ndarray:
     """Pin the diagonal of inert coarse DoF (zero weight columns, padding
-    aggregates) so the inverse exists (their restricted residual is zero,
-    so they add no correction), then add the shift."""
+    aggregates, aggregates of constrained rows only) so the inverse exists
+    (their restricted residual is zero, so they add no correction), then
+    add the shift."""
     nc = out.shape[0]
     out[np.diag_indices(nc)] += np.where(np.abs(np.diagonal(out)) <= 1e-300,
                                          1.0, 0.0)
@@ -224,12 +234,52 @@ def _pin_inert(out: np.ndarray, shift: float) -> np.ndarray:
     return out
 
 
+def agg_diag_add(ac_flat: np.ndarray, v: np.ndarray, node_off: int, a: int,
+                 c: int, n_agg: int, agg: int, nc: int, dof: int = 4) -> None:
+    """Add one node diagonal into a dense coarse matrix (flat, in place).
+
+    `v[i]` (a node index; length n_agg * agg, padding rows zero)
+    contributes to A_c[dof*(i//agg) + a, dof*((i+node_off)//agg) + c].  For
+    a fixed node_off, (i + node_off)//agg = i//agg + q with q taking two
+    values split by the phase i % agg, so each (q, a, c) lands on one
+    strided diagonal of the dense matrix: two vectorized adds."""
+    q0, dm = divmod(int(node_off), agg)
+    t = agg - dm
+    V = v.reshape(n_agg, agg)
+    ic = np.arange(n_agg)
+    for q, s in ((q0, V[:, :t].sum(1, dtype=np.float64)),
+                 (q0 + 1, V[:, t:].sum(1, dtype=np.float64) if dm else None)):
+        if s is None:
+            continue
+        sel = (ic + q >= 0) & (ic + q < n_agg)
+        idx = (dof * ic[sel] + a) * nc + dof * (ic[sel] + q) + c
+        ac_flat[idx] += s[sel]
+
+
+def node_block_view(offsets: tuple, dd: np.ndarray, nb: int,
+                    node_offsets: tuple) -> np.ndarray:
+    """(N_D, nb, 4, 4) block view of scalar-DIA data:
+    A_blk[iD, i, a, b] = A[4i+a, 4(i+D)+b].  Absent scalar diagonals give
+    zero blocks, and rows whose column node i + D leaves the matrix are
+    zeroed (DIA storage does not guarantee zeros there)."""
+    kidx = {k: i for i, k in enumerate(offsets)}
+    A_blk = np.zeros((len(node_offsets), nb, 4, 4), dtype=dd.dtype)
+    for iD, D in enumerate(node_offsets):
+        for a in range(4):
+            for b in range(4):
+                k = 4 * D + (b - a)
+                if k in kidx:
+                    A_blk[iD, :, a, b] = dd[kidx[k], a::4]
+        if D < 0:
+            A_blk[iD, :-D] = 0.0
+        elif D > 0:
+            A_blk[iD, nb - D:] = 0.0
+    return A_blk
+
+
 def _host_blocks(offsets: tuple, data: torch.Tensor, nb: int) -> tuple:
     """(node offsets, the (N_D, nb, 4, 4) block view) of DIA data, on the
     host in the data's dtype."""
-    from navierstokes_tpu_torch.ops.plane_dia import node_offsets_from_scalar
-    from navierstokes_tpu_torch.solvers.schur import node_block_view
-
     noffs = node_offsets_from_scalar(offsets)
     return noffs, node_block_view(offsets, data.cpu().numpy(), nb, noffs)
 
@@ -242,8 +292,6 @@ def linear_coarse_dense_matrix(cs: CoarseSpace, offsets: tuple,
     aggregate-major, then mode, then component.  For each node offset D
     and mode pair (m, m'), the weighted block plane w[m, i] A_blk[D, i, a,
     b] w[m', i+D] goes onto coarse diagonals (`agg_diag_add`, dof=16)."""
-    from navierstokes_tpu_torch.solvers.schur import agg_diag_add
-
     nb, agg, n_agg = cs.nb, cs.agg_size, cs.n_agg
     nc = 16 * n_agg
     noffs, A_blk = _host_blocks(offsets, dia_data, nb)
@@ -265,7 +313,7 @@ def linear_coarse_dense_matrix(cs: CoarseSpace, offsets: tuple,
                         vbuf[lo:hi] = M2[:, a, b]
                         agg_diag_add(ac, vbuf, D, 4 * m + a, 4 * mp + b,
                                      n_agg, agg, nc, dof=16)
-    return _pin_inert(ac.reshape(nc, nc), shift)
+    return pin_inert(ac.reshape(nc, nc), shift)
 
 
 def linear_coarse_inverse_dia(cs: CoarseSpace, offsets: tuple,
@@ -282,9 +330,7 @@ def restrict_planes_linear(cs: CoarseSpace, rp: torch.Tensor, nbp: int,
                            w: torch.Tensor) -> torch.Tensor:
     """P^T r on a plane-major padded fine vector -> (16 n_agg,) coarse, in
     the order of `linear_coarse_dense_matrix`."""
-    if cs.nb_pad > nbp:
-        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
-                         f"layout's nbp={nbp}")
+    _check_planes(cs, nbp)
     r3 = rp.reshape(4, nbp)[:, :cs.nb_pad].reshape(4, cs.n_agg, cs.agg_size)
     w3 = w.reshape(4, cs.n_agg, cs.agg_size)
     return torch.einsum("cgp,mgp->gmc", r3, w3).reshape(-1)
@@ -294,9 +340,7 @@ def prolong_planes_linear(cs: CoarseSpace, zc: torch.Tensor, nbp: int,
                           nb: int, w: torch.Tensor) -> torch.Tensor:
     """P zc: (16 n_agg,) coarse -> plane-major padded fine vector, with the
     padding rows nb..nbp kept at exact zero."""
-    if cs.nb_pad > nbp:
-        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
-                         f"layout's nbp={nbp}")
+    _check_planes(cs, nbp)
     zf = torch.einsum("gmc,mgp->cgp", zc.reshape(cs.n_agg, 4, 4),
                       w.reshape(4, cs.n_agg, cs.agg_size))
     out = torch.zeros((4, nbp), dtype=zc.dtype, device=zc.device)
@@ -319,8 +363,6 @@ def smoothed_coarse_dense_matrix(cs: CoarseSpace, offsets: tuple,
     it worse than plain aggregation on this indefinite operator (3x the
     iterations in float64 at matrix 3, no convergence at 117k rows, for
     every omega in {0.5, 0.6667, 1.0}); it is kept for parity."""
-    from navierstokes_tpu_torch.solvers.schur import agg_diag_add
-
     nb, agg, n_agg, nc = cs.nb, cs.agg_size, cs.n_agg, cs.nc
     noffs, A_blk = _host_blocks(offsets, dia_data, nb)
     di = inv_diag.cpu().numpy()

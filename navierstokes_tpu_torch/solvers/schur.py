@@ -22,61 +22,22 @@ host power iteration).
 
 The host algebra here is the JAX package's `solvers/schur.py` in numpy,
 the same operations in the same order and with the same power-iteration
-seed, so both packages build the same numbers.  `restrict_planes_n` and
-`prolong_planes_n` act on plane-major torch tensors, on the device.
+seed, so both packages build the same numbers.  The device half, the
+model's `_schur_operators`, composes the two cycles from `solvers/cycle.py`.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from navierstokes_tpu_torch.solvers.coarse import CoarseSpace
+from navierstokes_tpu_torch.solvers.coarse import (
+    CoarseSpace,
+    agg_diag_add,
+    node_block_view,
+    pin_inert,
+)
 
 POWER_SEED = 20260820       # the JAX package's power-iteration seed
-
-
-def agg_diag_add(ac_flat: np.ndarray, v: np.ndarray, node_off: int, a: int,
-                 c: int, n_agg: int, agg: int, nc: int, dof: int = 4) -> None:
-    """Add one node diagonal into a dense coarse matrix (flat, in place).
-
-    `v[i]` (a node index; length n_agg * agg, padding rows zero)
-    contributes to A_c[dof*(i//agg) + a, dof*((i+node_off)//agg) + c].  For
-    a fixed node_off, (i + node_off)//agg = i//agg + q with q taking two
-    values split by the phase i % agg, so each (q, a, c) lands on one
-    strided diagonal of the dense matrix: two vectorized adds."""
-    q0, dm = divmod(int(node_off), agg)
-    t = agg - dm
-    V = v.reshape(n_agg, agg)
-    ic = np.arange(n_agg)
-    for q, s in ((q0, V[:, :t].sum(1, dtype=np.float64)),
-                 (q0 + 1, V[:, t:].sum(1, dtype=np.float64) if dm else None)):
-        if s is None:
-            continue
-        sel = (ic + q >= 0) & (ic + q < n_agg)
-        idx = (dof * ic[sel] + a) * nc + dof * (ic[sel] + q) + c
-        ac_flat[idx] += s[sel]
-
-
-def node_block_view(offsets: tuple, dd: np.ndarray, nb: int,
-                    node_offsets: tuple) -> np.ndarray:
-    """(N_D, nb, 4, 4) block view of scalar-DIA data:
-    A_blk[iD, i, a, b] = A[4i+a, 4(i+D)+b].  Absent scalar diagonals give
-    zero blocks, and rows whose column node i + D leaves the matrix are
-    zeroed (DIA storage does not guarantee zeros there)."""
-    kidx = {k: i for i, k in enumerate(offsets)}
-    A_blk = np.zeros((len(node_offsets), nb, 4, 4), dtype=dd.dtype)
-    for iD, D in enumerate(node_offsets):
-        for a in range(4):
-            for b in range(4):
-                k = 4 * D + (b - a)
-                if k in kidx:
-                    A_blk[iD, :, a, b] = dd[kidx[k], a::4]
-        if D < 0:
-            A_blk[iD, :-D] = 0.0
-        elif D > 0:
-            A_blk[iD, nb - D:] = 0.0
-    return A_blk
 
 
 def split_blocks(offsets: tuple, dia_data: np.ndarray, nb: int,
@@ -130,23 +91,12 @@ def build_schur_dia(a_blk: np.ndarray, node_offsets: tuple, nb: int,
     return tuple(sums[k] for k in keep), np.ascontiguousarray(s[keep])
 
 
-def _pin_and_invert(ac: np.ndarray, shift: float) -> np.ndarray:
-    """Put 1 on zero diagonal entries (aggregates of constrained rows only),
-    add the shift, invert."""
-    n = ac.shape[0]
-    dg = np.abs(np.diagonal(ac))
-    ac[np.diag_indices(n)] += np.where(dg <= 1e-300, 1.0, 0.0)
-    if shift:
-        ac[np.diag_indices(n)] += shift
-    return np.linalg.inv(ac)
-
-
 def velocity_coarse_inverse(cs: CoarseSpace, a_blk: np.ndarray,
                             node_offsets: tuple, *,
                             shift: float = 0.0) -> np.ndarray:
     """Dense inverse of the aggregated velocity block R F P (host float64).
     Piecewise-constant basis, 3 DoF per aggregate, coarse DoFs ordered
-    aggregate-major then component (as `restrict_planes_n`)."""
+    aggregate-major then component (as `coarse.restrict_planes`)."""
     nb, agg, n_agg = cs.nb, cs.agg_size, cs.n_agg
     nc = 3 * n_agg
     ac = np.zeros(nc * nc, dtype=np.float64)
@@ -157,7 +107,7 @@ def velocity_coarse_inverse(cs: CoarseSpace, a_blk: np.ndarray,
                 vbuf[:] = 0.0
                 vbuf[:nb] = a_blk[i_d, :, a, b]
                 agg_diag_add(ac, vbuf, d, a, b, n_agg, agg, nc, dof=3)
-    return _pin_and_invert(ac.reshape(nc, nc), shift)
+    return np.linalg.inv(pin_inert(ac.reshape(nc, nc), shift))
 
 
 def scalar_coarse_inverse(cs: CoarseSpace, s_offsets: tuple,
@@ -175,7 +125,7 @@ def scalar_coarse_inverse(cs: CoarseSpace, s_offsets: tuple,
         vbuf[:] = 0.0
         vbuf[lo:hi] = s_data[k, lo:hi]
         agg_diag_add(ac, vbuf, d, 0, 0, n_agg, agg, n_agg, dof=1)
-    return _pin_and_invert(ac.reshape(n_agg, n_agg), shift)
+    return np.linalg.inv(pin_inert(ac.reshape(n_agg, n_agg), shift))
 
 
 def _spmv_dia_host(s_offsets: tuple, s_data: np.ndarray,
@@ -233,33 +183,3 @@ def power_lmax_velocity(a_blk: np.ndarray, node_offsets: tuple,
         lambda v: np.einsum("icq,iq->ic", fd_inv,
                             _spmv_blocks_host(a_blk, node_offsets, v)),
         x, iters)
-
-
-# -- plane-layout restriction and prolongation (n_comp components) ----------
-
-
-def restrict_planes_n(cs: CoarseSpace, rp: torch.Tensor, nbp: int,
-                      n_comp: int) -> torch.Tensor:
-    """R r: plane-major (n_comp * nbp,) -> coarse (n_comp * n_agg,),
-    aggregate-major then component (the order of the dense coarse
-    inverses).  Rows nb..nbp of the planes are zero, so the aggregation
-    padding adds nothing."""
-    if cs.nb_pad > nbp:
-        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
-                         f"layout's nbp={nbp}")
-    r2 = rp.reshape(n_comp, nbp)[:, :cs.nb_pad]
-    rc = r2.reshape(n_comp, cs.n_agg, cs.agg_size).sum(-1)
-    return rc.T.reshape(-1)
-
-
-def prolong_planes_n(cs: CoarseSpace, zc: torch.Tensor, nbp: int, nb: int,
-                     n_comp: int) -> torch.Tensor:
-    """P zc: coarse (n_comp * n_agg,) -> plane-major (n_comp * nbp,), the
-    padding rows nb..nbp at exact zero."""
-    if cs.nb_pad > nbp:
-        raise ValueError(f"aggregation padding {cs.nb_pad} exceeds the plane "
-                         f"layout's nbp={nbp}")
-    z2 = zc.reshape(cs.n_agg, n_comp).T
-    out = torch.zeros((n_comp, nbp), dtype=zc.dtype, device=zc.device)
-    out[:, :nb] = z2.repeat_interleave(cs.agg_size, dim=1)[:, :nb]
-    return out.reshape(-1)

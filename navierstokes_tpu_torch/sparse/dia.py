@@ -153,6 +153,9 @@ def scale_rows_dia(pattern: DIAPattern, data: torch.Tensor,
     return pattern.scaled_offsets, torch.stack(out)
 
 
+DINV_OFFSETS = tuple(range(-3, 4))    # the block-diagonal D^{-1} in DIA form
+
+
 def block_diag_to_dia(blocks: torch.Tensor) -> ScalarDIA:
     """(nb, 4, 4) block-diagonal matrix -> 7-diagonal ScalarDIA (offsets
     -3..3): the block-Jacobi apply is itself a scalar-DIA SpMV."""
@@ -161,4 +164,4 @@ def block_diag_to_dia(blocks: torch.Tensor) -> ScalarDIA:
     for a in range(4):
         for b in range(4):
             data[b - a + 3, a::4] = blocks[:, a, b]
-    return ScalarDIA(offsets=tuple(range(-3, 4)), data=data, nnz=nb * 16)
+    return ScalarDIA(offsets=DINV_OFFSETS, data=data, nnz=nb * 16)

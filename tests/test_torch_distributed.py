@@ -24,6 +24,7 @@ from navierstokes_tpu_torch.config import NSConfig, SolverConfig
 from navierstokes_tpu_torch.mesh import channel_mesh
 from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.ops import dia as tdia
+from navierstokes_tpu_torch.ops.plane_dia import from_planes, to_planes
 from navierstokes_tpu_torch.parallel import DistributedNavierStokesSolver
 from navierstokes_tpu_torch.parallel import partitioned as tpart
 
@@ -241,7 +242,11 @@ def test_shard_layout_rules(kind, kw):
     """Each shard holds at least the halo; on 'tl' a multiple of 4 * agg
     rows, on 'tlp' a multiple of agg nodes and of a 16-byte unit, so every
     aggregate lives on one shard; padding rows of the prepared operator
-    are exact zeros."""
+    are exact zeros.  The cycle pieces the distributed operators share
+    with the single-device ones (`solvers/cycle.py`, the plane and
+    interleaved transfers on a shard's aggregates) give the single-device
+    matvec and b_prep on the shard layout (rel 1e-12), padding rows
+    exactly zero."""
     mesh = channel_mesh(12, 2, 2, length=6.0)
     d, _ = DistributedNavierStokesSolver.from_mesh(mesh, _cfg(**kw),
                                                    devices=[CPU] * 3)
@@ -259,3 +264,23 @@ def test_shard_layout_rules(kind, kw):
     assert sum(live) == prep.n and 0 < live[-1] <= L
     assert torch.all(prep.op.parts[-1][..., live[-1]:] == 0)
     assert kind == "bj" or live[-1] < L
+
+    single = NavierStokesSolver(d.disc.mesh, d.cfg, disc=d.disc, device=CPU)
+    single._ensure_prepared()
+    sprep = single._exact_prep
+    assert sprep.kind == kind
+    x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        d.disc.ndof))
+    for f, g in zip(d._prep_operators(prep)[:2],
+                    single._prep_operators(sprep)[:2]):
+        y = f(d._split(prep, x))
+        pad = y.parts[-1].reshape(4, L) if kind == "tlp" else y.parts[-1]
+        assert torch.all(pad[..., live[-1]:] == 0)
+        if kind == "tlp":
+            want = from_planes(g(to_planes(x, sprep.nb, sprep.nbp)),
+                               sprep.nb, sprep.nbp)
+        else:
+            want = g(x)
+        got = d._join(prep, y)
+        assert float(torch.linalg.norm(got - want)
+                     / torch.linalg.norm(want)) <= 1e-12

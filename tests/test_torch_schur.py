@@ -31,6 +31,7 @@ from navierstokes_tpu_torch.model import NavierStokesSolver
 from navierstokes_tpu_torch.model.navier_stokes import SchurPrep
 from navierstokes_tpu_torch.ops import plane_dia as tpd
 from navierstokes_tpu_torch.ops.plane_dia import from_planes, to_planes
+from navierstokes_tpu_torch.solvers import coarse as tco
 from navierstokes_tpu_torch.solvers import schur as tsch
 from navierstokes_tpu_torch.solvers.coarse import build_aggregates
 
@@ -133,21 +134,23 @@ def test_schur_algebra_matches_jax(jax_problem):
 
 @pytest.mark.parametrize("n_comp", [1, 3])
 def test_plane_transfers_match_jax(n_comp):
-    """restrict_planes_n / prolong_planes_n on plane-major vectors equal
-    the JAX package's, padding rows of the prolongation exactly zero."""
+    """The port's one pair of plane transfers (`coarse.restrict_planes` /
+    `prolong_planes`) at n_comp components equal the JAX package's
+    `restrict_planes_n` / `prolong_planes_n`, padding rows of the
+    prolongation exactly zero."""
     nb, agg = 45, 4
     cs, jcs = build_aggregates(nb, agg), j_aggregates(nb, agg)
     nbp = tpd.plane_nbp(nb, cs.nb_pad)
     rng = np.random.default_rng(7 + n_comp)
     r = np.zeros((n_comp, nbp))
     r[:, :nb] = rng.standard_normal((n_comp, nb))
-    rc = tsch.restrict_planes_n(cs, torch.as_tensor(r.reshape(-1)), nbp,
-                                n_comp).numpy()
+    rc = tco.restrict_planes(cs, torch.as_tensor(r.reshape(-1)), nbp,
+                             n_comp).numpy()
     assert _rel(rc, jsch.restrict_planes_n(jcs, jnp.asarray(r.reshape(-1)),
                                            nbp, n_comp)) <= 1e-15
     zc = rng.standard_normal(n_comp * cs.n_agg)
-    z = tsch.prolong_planes_n(cs, torch.as_tensor(zc), nbp, nb,
-                              n_comp).numpy()
+    z = tco.prolong_planes(cs, torch.as_tensor(zc), nbp, nb,
+                           n_comp).numpy()
     assert np.array_equal(z, np.asarray(jsch.prolong_planes_n(
         jcs, jnp.asarray(zc), nbp, nb, n_comp)))
     assert not z.reshape(n_comp, nbp)[:, nb:].any()

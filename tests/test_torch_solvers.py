@@ -119,18 +119,19 @@ def test_restrict_prolong_match_jax(nb, agg):
     rng = np.random.default_rng(nb)
     r = np.zeros((4, nbp))
     r[:, :nb] = rng.standard_normal((4, nb))
-    rc = tco.restrict_planes(cs, torch.as_tensor(r.reshape(-1)), nbp).numpy()
+    rc = tco.restrict_planes(cs, torch.as_tensor(r.reshape(-1)), nbp,
+                             4).numpy()
     rc_j = np.asarray(jco.restrict_planes(cs_j, jnp.asarray(r.reshape(-1)),
                                           nbp))
     np.testing.assert_allclose(rc, rc_j, rtol=1e-13, atol=1e-13)
     zc = rng.standard_normal(cs.nc)
-    z = tco.prolong_planes(cs, torch.as_tensor(zc), nbp, nb).numpy()
+    z = tco.prolong_planes(cs, torch.as_tensor(zc), nbp, nb, 4).numpy()
     np.testing.assert_array_equal(
         z, np.asarray(jco.prolong_planes(cs_j, jnp.asarray(zc), nbp, nb)))
     assert np.all(z.reshape(4, nbp)[:, nb:] == 0)
     if cs.nb_pad > 128:       # a layout rounded to the kernel block only
         with pytest.raises(ValueError, match="padding"):
-            tco.restrict_planes(cs, torch.zeros(4 * 128), 128)
+            tco.restrict_planes(cs, torch.zeros(4 * 128), 128, 4)
 
 
 @pytest.mark.parametrize("nb,agg", [(100, 48), (75, 8), (29, 4)])
