@@ -49,7 +49,9 @@ final step as the uninterrupted run (`--steps` or t_final / dt counts from
 prints their tree at the end: count, total and self seconds of the run's
 phases (setup, stokes_init, operator_prep, time_loop) and of every span
 inside them, down to the GMRES iteration and the host's waits on the
-device.
+device, then what the run added to the always-on counters
+(`profiling.counters()`: host waits, graph captures, replays, replays
+launched ahead and discarded).
 """
 
 from __future__ import annotations
@@ -284,6 +286,7 @@ def main(argv=None) -> Optional[RunOutput]:
     print(f"device={device} dtype={dtype} nodes={mesh.nv} "
           f"tets={mesh.ne}")
     log = profiling.enable() if args.profile else None
+    counted = profiling.counters()
     try:
         with profiling.span("setup"):
             if devices is None:
@@ -342,6 +345,9 @@ def main(argv=None) -> Optional[RunOutput]:
             profiling.disable()
     if log is not None:
         print(log.report())
+        print("Counters: " + " ".join(
+            f"{name}={n - counted[name]}"
+            for name, n in profiling.counters().items()))
     return RunOutput(u=u, solver=solver, setup_s=setup_s, stokes_s=stokes_s,
                      prep_s=prep_s, steps_s=steps_s)
 

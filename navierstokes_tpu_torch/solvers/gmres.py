@@ -13,12 +13,12 @@ projection `ops/cgs2.cgs2_project` (kernel K3 on the card), for any n.
 
 The Krylov vectors stay on the device: one tensor, or the shards of the
 distributed solver (`solvers/vectors.py`; K3 takes one tensor only).  Each
-inner iteration fetches the new Hessenberg column (k+2 numbers) in one host
-sync; the rotations, the tolerance tests and the small triangular solve run
+inner iteration reads the new Hessenberg column (k+2 numbers) in one host
+wait; the rotations, the tolerance tests and the small triangular solve run
 on the host, in numpy scalars of the working dtype so that float32 rounds
-as it does on the device.  Every host read goes through
-`utils/profiling.fetch`: one before the first cycle, one per cycle, one per
-iteration.
+as it does on the device.  Every host wait goes through `utils/profiling`
+(`fetch`, or `wait` for a graphed iteration's column): one before the first
+cycle, one per cycle, one per iteration.
 
 The device part of an inner iteration (`arnoldi_step`: the operator, the
 projection, the norm and the new basis row) runs eagerly, kernel by kernel,
@@ -27,7 +27,8 @@ passes for a plain GMRES solve of its held Newton operator on a CUDA
 device), as one CUDA graph per basis index k, captured the first time
 iteration k is reached and replayed after: the same kernels, the same
 answers bit for bit, one launch.  The basis is then the graphs' persistent
-one.
+one, and the host reads column k while graph k+1 already runs; a cycle's
+end discards that replay (`IterationGraphs.column`, `end_cycle`).
 
 The spans (on only where `utils/profiling` is enabled): `gmres.restart` (a
 cycle's residual and its read), `gmres.iter` (one inner iteration; its self
@@ -158,10 +159,9 @@ def gmres(
                 if graphs is None:
                     h_t, hk1_t = arnoldi_step(matvec, M, V, k, one,
                                               cgs2_kernel, cgs2_compensated)
-                    col = torch.cat([h_t, hk1_t[None]])
+                    col = fetch(torch.cat([h_t, hk1_t[None]])).numpy()
                 else:
                     col = graphs.column(k, matvec, M)
-                col = fetch(col).numpy()
                 h, hk1 = col[:k + 1], col[k + 1]
 
                 # rotations 0..k-1 applied to the new column
@@ -189,6 +189,8 @@ def gmres(
                 brk = breakdown
                 if not breakdown:
                     k += 1
+        if graphs is not None:
+            graphs.end_cycle()
 
         with span("gmres.update"):
             y = _back_substitute(R, g, k)

@@ -9,8 +9,20 @@ reached, and replays it on every later iteration k: the host then pays
 one graph launch where it paid every kernel's.  The GEMV shapes differ
 with k, so one graph per k replays exactly the kernels and launch
 configurations the eager loop runs, and the answers are the same bit for
-bit.  The host keeps the rest: the column's fetch, the Givens rotations,
+bit.  The host keeps the rest: the column's read, the Givens rotations,
 the tests, the back-substitution, the restart residual and x's update.
+
+The host's read of column k trails the device by one iteration
+(`IterationGraphs.column`): graph k+1 needs nothing the host computes from
+column k (it reads `V[k+1]`, which graph k wrote), so once column k's copy
+to pinned host memory and an event after it are enqueued, graph k+1 is
+replayed, and only then does the host wait, on that event alone.  The
+device runs iteration k+1 while the host rotates column k.  Where the
+cycle ends at k, the replay launched ahead is discarded (`end_cycle`): it
+wrote only `V[k+2]` and the column buffer, which nothing reads before the
+next cycle's `V.zero_()`, ordered after it on the same stream, so every
+number the solve returns is the in-order loop's bit for bit.  Where graph
+k+1 is not captured yet, iteration k runs in order.
 
 Capture follows `torch.cuda.graph`'s recipe: the iteration runs once on a
 side stream (the warm-up, whose results are the iteration's: nothing is
@@ -19,8 +31,10 @@ graphs share one memory pool: they replay one after another on one
 stream, and every output lands in a buffer that outlives them (the basis
 `V`, the column `col`).  Counters stay true: each replay adds to the
 kernels' launch counters (`ops/plane_dia`, `ops/dia`, `ops/cgs2`,
-`ops/mpk_fused`) what its capture launched, and `utils/profiling` counts
-`graph_captures` and `graph_replays`; span `gmres.replay` times each
+`ops/mpk_fused`) what its capture launched, a discarded one too (the
+device ran it), and `utils/profiling` counts `graph_captures`,
+`graph_replays`, `graph_ahead` (replays launched before the previous
+column was read) and `graph_discarded`; span `gmres.replay` times each
 replay.
 
 Where the graphs engage (`engages`): a plain GMRES solve (`method`
@@ -34,6 +48,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from navierstokes_tpu_torch.ops import cgs2, dia, mpk_fused, plane_dia
@@ -111,6 +126,9 @@ class CudaRecorder:
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
+        # one event serves every copy: the host waits on each before the
+        # next copy is enqueued
+        self.copied = torch.cuda.Event()
 
     def warm_up(self, fn) -> None:
         """Run `fn` on the side stream, ordered after the current stream's
@@ -120,6 +138,14 @@ class CudaRecorder:
         with torch.cuda.stream(self.stream):
             fn()
         current.wait_stream(self.stream)
+
+    def copy_out(self, src: torch.Tensor, dst: torch.Tensor):
+        """Enqueue `dst.copy_(src)` (dst in pinned host memory) on the
+        current stream; returns an event recorded after it, for
+        `profiling.wait`."""
+        dst.copy_(src, non_blocking=True)
+        self.copied.record(torch.cuda.current_stream(self.device))
+        return self.copied
 
     def record(self, fn) -> torch.cuda.CUDAGraph:
         """Capture what `fn` launches (it runs nothing) into a graph."""
@@ -137,17 +163,21 @@ class CudaRecorder:
 class IterationGraphs:
     """The persistent Krylov basis `V` (restart + 1 rows), the column buffer
     and one captured graph per basis index k of a held GMRES solve; pass
-    to `gmres(..., graphs=)`.  `recorder` warms up and captures (a
-    `CudaRecorder` of b's device by default)."""
+    to `gmres(..., graphs=)`.  `recorder` warms up, captures and copies
+    columns out (a `CudaRecorder` of b's device by default)."""
 
     def __init__(self, b: torch.Tensor, restart: int, recorder=None):
         self.restart = restart
         self.V = vs.basis(restart + 1, b)
         self.col = torch.zeros(restart + 1, dtype=b.dtype, device=b.device)
+        # row k: column k on the host
+        self._host = torch.zeros((restart, restart + 1), dtype=b.dtype,
+                                 pin_memory=b.device.type == "cuda")
         self.one = torch.ones((), dtype=b.dtype, device=b.device)
         self._recorder = recorder or CudaRecorder(b.device)
         self._graphs = [None] * restart
         self._launches = [None] * restart     # each graph's launch counts
+        self._ahead = None      # the index whose replay is in flight unread
 
     def fits(self, b: torch.Tensor, restart: int) -> bool:
         """Whether these buffers serve a solve of b with `restart`."""
@@ -158,22 +188,42 @@ class IterationGraphs:
         h_t, hk1_t = arnoldi_step(matvec, precond, self.V, k, self.one)
         torch.cat([h_t, hk1_t[None]], out=self.col[:k + 2])
 
-    def column(self, k: int, matvec, precond) -> torch.Tensor:
-        """Run the device part of inner iteration k: the first time by the
-        warm-up, then captured; after that by a replay.  Returns the
-        column [h_0..h_k, ||w||] on the device."""
-        graph = self._graphs[k]
-        if graph is None:
-            fn = functools.partial(self._device_part, k, matvec, precond)
-            self._recorder.warm_up(fn)
-            before = launch_counts()
-            self._graphs[k] = self._recorder.record(fn)
-            # the capture ran nothing: its launches count at each replay
-            self._launches[k] = restore_launches(before)
-            profiling.graph_captures += 1
-        else:
-            with profiling.span("gmres.replay"):
-                graph.replay()
-            add_launches(self._launches[k])
-            profiling.graph_replays += 1
-        return self.col[:k + 2]
+    def _replay(self, k: int) -> None:
+        with profiling.span("gmres.replay"):
+            self._graphs[k].replay()
+        add_launches(self._launches[k])
+        profiling.graph_replays += 1
+
+    def column(self, k: int, matvec, precond) -> np.ndarray:
+        """Inner iteration k's column [h_0..h_k, ||w||] on the host.  Its
+        device part runs unless iteration k-1 launched it ahead: the first
+        time by the warm-up, then captured; after that by a replay.  Before
+        the host waits for the column, graph k+1 is replayed where it is
+        captured and k+1 < restart."""
+        if self._ahead != k:
+            graph = self._graphs[k]
+            if graph is None:
+                fn = functools.partial(self._device_part, k, matvec, precond)
+                self._recorder.warm_up(fn)
+                before = launch_counts()
+                self._graphs[k] = self._recorder.record(fn)
+                # the capture ran nothing: its launches count at each replay
+                self._launches[k] = restore_launches(before)
+                profiling.graph_captures += 1
+            else:
+                self._replay(k)
+        row = self._host[k, :k + 2]
+        copied = self._recorder.copy_out(self.col[:k + 2], row)
+        self._ahead = None
+        if k + 1 < self.restart and self._graphs[k + 1] is not None:
+            self._replay(k + 1)
+            profiling.graph_ahead += 1
+            self._ahead = k + 1
+        profiling.wait(copied)
+        return row.numpy()
+
+    def end_cycle(self) -> None:
+        """The cycle ends: a replay launched ahead is discarded."""
+        if self._ahead is not None:
+            profiling.graph_discarded += 1
+            self._ahead = None

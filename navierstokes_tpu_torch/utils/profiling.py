@@ -10,11 +10,19 @@
 - While a `torch.profiler` session records, each span also opens
   `record_function("ns.<name>")`, so it lies in the Chrome trace as a
   `user_annotation` on the clock of the kernels and runtime calls.
-- `fetch(t)`: every device-to-host read on the solve path goes through it.
-  It counts the read in `syncs` (always, as the kernels' launch counters
-  count) and, with spans on, times it as span `sync`.
-- `graph_captures` and `graph_replays` count, always, the CUDA graphs of
-  GMRES's inner iteration that `solvers/graphs.py` captures and replays.
+- `fetch(t)`: every device-to-host read on the solve path goes through it,
+  or through `wait(event)` where the read was enqueued as a copy to pinned
+  host memory (a graphed GMRES iteration's column).  Either counts the
+  wait in `syncs` (always, as the kernels' launch counters count) and,
+  with spans on, times it as span `sync`.
+- Always on, for the CUDA graphs of GMRES's inner iteration
+  (`solvers/graphs.py`): `graph_captures` and `graph_replays` count the
+  graphs captured and replayed; `graph_ahead` the replays launched before
+  the previous iteration's column was read, and `graph_discarded` those
+  whose column was never read (the cycle ended first).  `graph_ahead /
+  graph_replays` is the share of replays that ran ahead of the host.
+- `counters()`: all of these at once; `python -m navierstokes_tpu_torch.run
+  --profile` prints what a run added to them after the span tree.
 """
 
 from __future__ import annotations
@@ -31,9 +39,13 @@ PREFIX = "ns."          # the spans' names in a profiler trace
 
 _on = False
 _log: Optional["EventLog"] = None
-syncs = 0               # device-to-host reads through `fetch`
+syncs = 0               # host waits on the device: `fetch`, `wait`
 graph_captures = 0      # CUDA graphs captured (solvers/graphs.py)
 graph_replays = 0       # and replayed
+graph_ahead = 0         # replays launched before the last column was read
+graph_discarded = 0     # replays whose column was never read
+COUNTERS = ("syncs", "graph_captures", "graph_replays", "graph_ahead",
+            "graph_discarded")
 _OFF = contextlib.nullcontext()
 
 
@@ -175,3 +187,21 @@ def fetch(t: torch.Tensor) -> torch.Tensor:
         return t.cpu()
     with _Span("sync"):
         return t.cpu()
+
+
+def wait(event) -> None:
+    """`event.synchronize()`: the host waits on the device's work up to
+    `event` (a copy to pinned host memory), not on the whole stream.
+    Counted in `syncs`; span `sync` where spans are on."""
+    global syncs
+    syncs += 1
+    if not _on:
+        event.synchronize()
+        return
+    with _Span("sync"):
+        event.synchronize()
+
+
+def counters() -> dict:
+    """The always-on counters now, by name (`COUNTERS`)."""
+    return {name: globals()[name] for name in COUNTERS}

@@ -5,13 +5,16 @@ On the CPU: the rule that engages the graphs, the launch-counter and
 graph-counter bookkeeping of capture and replay, and that the held
 closures and the persistent basis leave answers bit for bit as before.
 Capture there goes through `StandIn`, which records by running the
-iteration (as a capture passes through the launch wrappers) and replays
+iteration (as a capture passes through the launch wrappers), replays
 by running it with the launch counters left as they were (a replay does
-not pass through them).  On the card (`cuda` marker): graphed against
-eager, bit for bit, on 'tlp' at matrix 6 (GMRES solves that restart,
-converge early and break down, and a Newton step with its launch
-counts) and on 'tl', 'sch' and 'bj' on a small mesh; and on 'sch' at
-matrix 9, the deployment the benchmark's Schur cell runs."""
+not pass through them) and copies a column out at once (on the card the
+copy is ordered before the next replay on the stream), logging replays
+and reads in order.  On the card (`cuda` marker): graphed against eager,
+bit for bit, on 'tlp' at matrix 6 (GMRES solves that restart, converge
+early and break down, and Newton steps with their launch counts: the
+eager step's plus the discarded replays') and on 'tl', 'sch' and 'bj' on
+a small mesh; and on 'sch' at matrix 9, the deployment the benchmark's
+Schur cell runs."""
 
 import dataclasses
 
@@ -39,10 +42,13 @@ MESH = channel_mesh(3, 2, 2)
 
 class StandIn:
     """A recorder for the CPU: warm-up and capture run the iteration; a
-    replay runs it again with the launch counters left as they were."""
+    replay runs it again with the launch counters left as they were; a
+    column's copy out happens at once, its read at the wait.  `log` holds
+    ("replay", k) and ("read", k) in the order they happen."""
 
     def __init__(self, device=None):
         self.recorded = 0
+        self.log = []
 
     def warm_up(self, fn):
         fn()
@@ -50,13 +56,24 @@ class StandIn:
     def record(self, fn):
         fn()
         self.recorded += 1
+        log, k = self.log, fn.args[0]
 
         class Graph:
             def replay(self):
+                log.append(("replay", k))
                 before = graphs.launch_counts()
                 fn()
                 graphs.restore_launches(before)
         return Graph()
+
+    def copy_out(self, src, dst):
+        dst.copy_(src)
+        log, k = self.log, src.numel() - 2
+
+        class Copied:
+            def synchronize(self):
+                log.append(("read", k))
+        return Copied()
 
 
 @pytest.fixture
@@ -91,6 +108,10 @@ def tlp():
 
 def _counts() -> tuple:
     return profiling.graph_captures, profiling.graph_replays
+
+
+def _ahead() -> tuple:
+    return profiling.graph_ahead, profiling.graph_discarded
 
 
 # -- the rule --------------------------------------------------------------
@@ -143,12 +164,14 @@ def test_solves_off_the_rule_stay_eager(tlp, stand_in, jacobian, krylov):
 def test_stokes_stays_eager_and_newton_is_graphed(tlp, stand_in):
     """The Stokes solve (a prep of its own) captures nothing; a step's
     Newton solves of the held prep capture each basis index once and
-    replay after, with the answers of the eager step bit for bit."""
+    replay after, with the answers of the eager step bit for bit; each
+    inner iteration is a capture or a replay, and each replay past a
+    cycle's end is discarded."""
     solver, u0, (u, du, stats) = tlp
-    before = _counts()
+    before, ahead = _counts(), _ahead()
     other = NavierStokesSolver(MESH, f32_cfg(), disc=solver.disc, device=CPU)
     assert torch.equal(other.stokes_init(), u0)
-    assert _counts() == before
+    assert _counts() == before and _ahead() == ahead
     for first in (True, False):
         u2, du2, stats2 = other.step(u0, u0, torch.zeros_like(u0))
         assert torch.equal(u2, u) and torch.equal(du2, du)
@@ -156,9 +179,12 @@ def test_stokes_stays_eager_and_newton_is_graphed(tlp, stand_in):
         assert np.array_equal(stats2.res_hist, stats.res_hist,
                               equal_nan=True)
         captures, replays = (a - b for a, b in zip(_counts(), before))
+        n_ahead, discarded = (a - b for a, b in zip(_ahead(), ahead))
         assert 0 < captures <= 30 if first else captures == 0
-        assert captures + replays == stats.lin_iters
-        before = _counts()
+        assert captures + replays - discarded == stats.lin_iters
+        assert discarded <= n_ahead <= replays
+        assert n_ahead > 0 if not first else True
+        before, ahead = _counts(), _ahead()
 
 
 def test_shards_stay_eager(stand_in):
@@ -234,8 +260,10 @@ def _counted(A):
 def test_graphed_gmres_counts_as_eager(restart, rtol):
     """Two solves with the same graphs: each basis index captured once
     (the warm-up's launches counted, the capture's not), every later
-    iteration a replay adding its capture's launches; the answers and the
-    launch counters equal the eager solves'."""
+    iteration a replay adding its capture's launches, a discarded replay
+    too; the answers equal the eager solves', and the launch counters
+    the eager solves' plus one iteration's launches per discarded
+    replay."""
     A, b = _system()
     matvec = _counted(A)
     kw = dict(restart=restart, rtol=rtol, atol=0.0, maxiter=200)
@@ -243,17 +271,63 @@ def test_graphed_gmres_counts_as_eager(restart, rtol):
     eager = [gmres(matvec, b, **kw) for _ in range(2)]
     eager_counts = graphs.restore_launches(start)
     g = graphs.IterationGraphs(b, restart, recorder=StandIn())
-    before = _counts()
+    before, ahead = _counts(), _ahead()
     graphed = [gmres(matvec, b, graphs=g, **kw) for _ in range(2)]
     graphed_counts = graphs.restore_launches(start)
     for e, r in zip(eager, graphed):
         assert torch.equal(e.x, r.x) and e.iters == r.iters
         assert e.resnorm == r.resnorm and e.converged and r.converged
-    assert graphed_counts == eager_counts
+    discarded = _ahead()[1] - ahead[1]
+    one = {(tpd, "kernel_launches", None): 1, (tpd, "route_launches",
+           "tiled"): 1, (tpd, "form_launches", ("4x4", 15, "tiled")): 1,
+           (tdia, "kernel_launches", None): 2}
+    assert graphed_counts == {key: n + discarded * one.get(key, 0)
+                              for key, n in eager_counts.items()}
     assert eager_counts[tpd, "kernel_launches", None] > 2 * eager[0].iters
     captured = min(restart, eager[0].iters)
     assert _counts()[0] - before[0] == captured == g._recorder.recorded
-    assert _counts()[1] - before[1] == 2 * eager[0].iters - captured
+    assert (_counts()[1] - before[1]
+            == 2 * eager[0].iters - captured + discarded)
+    # where a solve restarts, every index is captured in its first cycle,
+    # so both solves' last cycle (5 = 4 + 1) discards graph 1's replay; a
+    # solve of one cycle captures no index past its end
+    assert discarded == (2 if eager[0].iters > restart else 0)
+
+
+@pytest.mark.parametrize("restart, rtol", [(4, 1e-6), (30, 1e-3)],
+                         ids=["restarts", "converges-early"])
+def test_graph_k1_replays_before_column_k_is_read(restart, rtol):
+    """A solve whose graphs are captured (by a solve to a tighter rtol): in
+    each cycle graph 0 is replayed, then for each k graph k+1 (below
+    `restart`) before column k is read; the replay past the last cycle,
+    which ends before `restart`, is discarded.  `graph_ahead`,
+    `graph_discarded` and the host waits (one per iteration, as eager)
+    follow from the shape: n iterations in c cycles, the last of l."""
+    A, b = _system()
+    matvec = _counted(A)
+    kw = dict(restart=restart, rtol=rtol, atol=0.0, maxiter=200)
+    syncs = profiling.syncs
+    n = gmres(matvec, b, **kw).iters
+    eager_syncs = profiling.syncs - syncs
+    g = graphs.IterationGraphs(b, restart, recorder=StandIn())
+    assert gmres(matvec, b, graphs=g, **{**kw, "rtol": 1e-6}).iters == 5
+    g._recorder.log.clear()
+    before, ahead, syncs = _counts(), _ahead(), profiling.syncs
+    assert gmres(matvec, b, graphs=g, **kw).iters == n
+    c = -(-n // restart)
+    last = n - (c - 1) * restart
+    assert (n, c, last) == ((5, 2, 1) if restart == 4 else (3, 1, 3))
+    order = []
+    for length in [restart] * (c - 1) + [last]:
+        order.append(("replay", 0))
+        for k in range(length):
+            order += [("replay", k + 1)] * (k + 1 < restart)
+            order.append(("read", k))
+    assert g._recorder.log == order
+    assert _counts()[0] == before[0]
+    assert _counts()[1] - before[1] == n + 1
+    assert (_ahead()[0] - ahead[0], _ahead()[1] - ahead[1]) == (n + 1 - c, 1)
+    assert profiling.syncs - syncs == eager_syncs == 1 + c + n
 
 
 def _singular(n: int, device=CPU):
@@ -362,41 +436,80 @@ def test_graphed_gmres_breaks_down_as_eager_on_the_card():
 
 
 def _steps_both_ways(solver, u0, monkeypatch, steps: int = 2) -> tuple:
-    """`steps` steps graphed (after one that captures), then eagerly:
-    ((u, delta_u, [(Newton, GMRES)], launch counts, graph counts) graphed,
-    and eager)."""
-    solver.step(u0, u0, torch.zeros_like(u0))
-    out = []
-    for graphed in (True, False):
-        if not graphed:
-            _eager(monkeypatch)
-        before = graphs.launch_counts()
-        graph_counts = _counts()
+    """`steps` steps graphed (after the same steps once, which capture),
+    then eagerly: ((u, delta_u, [(Newton, GMRES)], launch counts, graph
+    counts, ahead and discarded counts) graphed, and eager), and the
+    graphed steps' discarded replays' launch counts (one dict each)."""
+
+    def run_steps():
         u, du = u0, torch.zeros_like(u0)
         hist = []
         for _ in range(steps):
             u_new, du, st = solver.step(u, u, du)
             u = u_new
             hist.append((st.iters, st.lin_iters))
+        return u, du, hist
+
+    run_steps()
+    discarded = []
+    end_cycle = graphs.IterationGraphs.end_cycle
+
+    def spy(g):
+        if g._ahead is not None:
+            discarded.append(g._launches[g._ahead])
+        end_cycle(g)
+
+    out = []
+    for graphed in (True, False):
+        if graphed:
+            monkeypatch.setattr(graphs.IterationGraphs, "end_cycle", spy)
+        else:
+            _eager(monkeypatch)
+        before = graphs.launch_counts()
+        graph_counts, ahead = _counts(), _ahead()
+        u, du, hist = run_steps()
         torch.cuda.synchronize()
         counts = {k: v - before.get(k, 0)
                   for k, v in graphs.launch_counts().items()}
         out.append((u, du, hist, {k: v for k, v in counts.items() if v},
-                    tuple(a - b for a, b in zip(_counts(), graph_counts))))
+                    tuple(a - b for a, b in zip(_counts() + _ahead(),
+                                                graph_counts + ahead))))
+        if graphed:
+            assert out[0][4][3] == len(discarded)
+    return out + [discarded]
+
+
+def _plus(counts: dict, extra: list) -> dict:
+    """`counts` with every dict of `extra` added."""
+    out = dict(counts)
+    for more in extra:
+        for key, n in more.items():
+            out[key] = out.get(key, 0) + n
     return out
 
 
 @pytest.mark.cuda
 def test_graphed_newton_steps_equal_eager_on_the_card(m6, monkeypatch):
-    """Two 'tlp' steps at matrix 6 graphed and eager: states, Newton and
-    GMRES counts and the launch counters equal; every graphed inner
-    iteration a capture or a replay, none of the eager ones."""
+    """Two 'tlp' steps at matrix 6 graphed, with the run-ahead, and eager:
+    states, Newton and GMRES counts equal bit for bit; every graphed inner
+    iteration a capture or a replay, none of the eager ones; one replay
+    discarded per solve (Newton 2 is the start check and one solve) whose
+    last cycle ends at a length l < 30 with graph l captured, and the
+    launch counters the eager steps' plus the discarded replays'."""
     solver, u0 = m6
-    (ug, dg, hg, cg, ng), (ue, de, he, ce, ne) = _steps_both_ways(
+    (ug, dg, hg, cg, ng), (ue, de, he, ce, ne), extra = _steps_both_ways(
         solver, u0, monkeypatch)
     assert torch.equal(ug, ue) and torch.equal(dg, de) and hg == he
-    assert cg == ce and cg[tpd, "kernel_launches", None] > 0
-    assert sum(ng) == sum(h[1] for h in hg) and ng[1] > 0 and ne == (0, 0)
+    assert cg == _plus(ce, extra) and cg[tpd, "kernel_launches", None] > 0
+    captures, replays, ahead, discarded = ng
+    assert all(h[0] == 2 for h in hg) and captures == 0
+    held = solver._held.graphs
+    ends = [h[1] % 30 for h in hg]      # each solve's last cycle; 0: full
+    assert discarded == len(extra) == sum(
+        1 for end in ends if end and held._graphs[end] is not None) > 0
+    assert captures + replays - discarded == sum(h[1] for h in hg)
+    assert replays > ahead > 0 and ne == (0, 0, 0, 0)
+    assert held._host.is_pinned()
 
 
 @pytest.mark.cuda
@@ -408,7 +521,7 @@ def test_graphed_newton_steps_equal_eager_on_the_card(m6, monkeypatch):
 def test_graphed_tiers_equal_eager_on_the_card(krylov, monkeypatch):
     """'tl' (K2), 'sch' (K1 on its sub-blocks) and 'bj' (K2) on
     channel(12, 6, 6): two steps graphed and eager equal bit for bit, with
-    the same launch counts."""
+    the eager steps' launch counts plus the discarded replays'."""
     dev = _card()
     solver = NavierStokesSolver(channel_mesh(12, 6, 6, obstacle=True),
                                 f32_cfg(**krylov), device=dev)
@@ -416,10 +529,10 @@ def test_graphed_tiers_equal_eager_on_the_card(krylov, monkeypatch):
     assert solver.prep_kind == {"two_level": "tl", "schur": "sch",
                                 "block_jacobi": "bj"}[
         krylov["preconditioner"]]
-    (ug, dg, hg, cg, ng), (ue, de, he, ce, _) = _steps_both_ways(
+    (ug, dg, hg, cg, ng), (ue, de, he, ce, _), extra = _steps_both_ways(
         solver, u0, monkeypatch)
     assert torch.equal(ug, ue) and torch.equal(dg, de) and hg == he
-    assert cg == ce and ng[1] > 0
+    assert cg == _plus(ce, extra) and ng[1] > 0
 
 
 @pytest.mark.cuda
@@ -428,17 +541,18 @@ def test_graphed_schur_step_equals_eager_at_matrix_9_on_the_card(
     """Matrix 9 (998,784 DoF) as `run.py --matrix-id 9` builds it, 'auto'
     resolving to 'sch': after a step that captures, a step graphed and
     the same step eager equal bit for bit, with the same Newton and GMRES
-    counts and launch counts; every graphed inner iteration replays, none
-    captures."""
+    counts, and launch counts the eager step's plus the discarded
+    replays'; every graphed inner iteration replays, none captures."""
     dev = _card()
     solver = NavierStokesSolver(scaling_series_mesh(9), f32_cfg(),
                                 device=dev)
     u0 = solver.stokes_init()
     assert solver.prep_kind == "sch"
     captures = profiling.graph_captures
-    (ug, dg, hg, cg, ng), (ue, de, he, ce, ne) = _steps_both_ways(
+    (ug, dg, hg, cg, ng), (ue, de, he, ce, ne), extra = _steps_both_ways(
         solver, u0, monkeypatch, steps=1)
     assert torch.equal(ug, ue) and torch.equal(dg, de) and hg == he
-    assert cg == ce and ne == (0, 0)
+    assert cg == _plus(ce, extra) and ne == (0, 0, 0, 0)
     # the first step's first solve passes k = 29: it captures all 30
-    assert ng == (0, hg[0][1]) and profiling.graph_captures - captures == 30
+    assert ng[:2] == (0, hg[0][1] + len(extra))
+    assert profiling.graph_captures - captures == 30

@@ -192,7 +192,7 @@ def test_spans_lie_in_a_profiler_trace_on_its_clock(profiled):
 
 def test_run_profile_prints_the_span_tree(capsys):
     """`--profile` on the f32 path: the run's phases at the root, every span
-    of a 'tlp' run under them, indented by depth."""
+    of a 'tlp' run under them, indented by depth, and last the counters."""
     out = run.main(["--nx", "3", "--ny", "2", "--nz", "2", "--steps", "1",
                     "--device", "cpu", "--dtype", "float32", "--profile"])
     assert out.solver.prep_kind == "tlp" and profiling.active() is None
@@ -204,6 +204,13 @@ def test_run_profile_prints_the_span_tree(capsys):
     assert TLP_SPANS <= set(rows)
     assert rows["step"].startswith("  step")
     assert rows["time_loop"].split()[1] == "1"
+    # then what the run added to the always-on counters (no graph on the
+    # CPU)
+    counted = dict(kv.split("=") for kv in tree[-1].split()[1:])
+    assert tree[-1].startswith("Counters: ") and int(counted["syncs"]) > 0
+    assert {k: counted[k] for k in ("graph_replays", "graph_ahead",
+                                    "graph_discarded")} == dict.fromkeys(
+        ("graph_replays", "graph_ahead", "graph_discarded"), "0")
 
 
 # -- the pressure-Schur tier ---------------------------------------------------
