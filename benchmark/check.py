@@ -13,12 +13,13 @@ the cell's file (`limits`), set from two readings (PERF.md):
               bounds only through the left preconditioner (it stops on
               |M^-1 (b - A_s x)|), so its limit is set between readings.
 
-The control (`round_tf32`) is the same answers carried at TF32's 10-bit
-mantissa, the precision next below the configuration's float32 with TF32
-off; it has to come out not correct.  The reference solves nothing (it
-reads residuals of given answers), so the control is not a TF32 solve but
-the answers as TF32 holds them: the least error that any computation
-returning TF32 values has.
+The control (`round_below`) is the same answers rounded to the precision
+next below the configuration's: TF32's 10-bit mantissa for float32 with
+TF32 off (`round_tf32`), float32 for float64; it has to come out not
+correct.  The reference solves nothing (it reads residuals of given
+answers), so the control is not a solve at that precision but the answers
+as it holds them: the least error that any computation returning such
+values has.
 """
 
 from __future__ import annotations
@@ -38,11 +39,23 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32)
 
 
-def readings(reference, stokes_state, pairs, control: bool = False) -> dict:
-    """The three numbers for these answers (TF32-rounded with `control`)."""
-    if control:
-        stokes_state = round_tf32(stokes_state)
-        pairs = [(old, round_tf32(new)) for old, new in pairs]
+def round_below(x: torch.Tensor, dtype: str) -> torch.Tensor:
+    """The answers `x` at the precision next below the configuration's
+    `dtype`: TF32 for float32, float32 (carried in float64) for float64."""
+    if dtype == "float32":
+        return round_tf32(x)
+    if dtype == "float64":
+        return x.to(torch.float32).to(torch.float64)
+    raise ValueError(f"no precision below {dtype!r} is defined")
+
+
+def readings(reference, stokes_state, pairs, control: str | None = None
+             ) -> dict:
+    """The three numbers for these answers; with `control` (the
+    configuration's dtype) for the answers rounded below it."""
+    if control is not None:
+        stokes_state = round_below(stokes_state, control)
+        pairs = [(old, round_below(new, control)) for old, new in pairs]
     return {
         "step_res": max(reference.step_residuals(pairs)),
         "bc_err": max(reference.bc_errors([new for _, new in pairs])),

@@ -10,8 +10,9 @@ traffic, every step's answer kept.  For each seed it prints one JSON line
 with the three numbers read from
 
   program   the answers as the program produced them (the lower reading);
-  control   the same answers at TF32 (the upper reading: the precision
-            next below the configuration's float32 with TF32 off);
+  control   the same answers at the precision next below the
+            configuration's (the upper reading; `check.round_below`:
+            TF32 for float32 with TF32 off, float32 for float64);
   unchanged a step that returns its state unchanged (u_new = u_old);
   altered   each answer with one free velocity DoF moved by 0.1;
 
@@ -86,7 +87,7 @@ def read_seeds(spec: Spec, name: str, seeds: list, segments: int,
                "unconverged": w.unconverged,
                "program": check.readings(reference, stokes_host, pairs),
                "control": check.readings(reference, stokes_host, pairs,
-                                         control=True),
+                                         control=cfg["dtype"]),
                "unchanged": check.readings(
                    reference, stokes_host, [(o, o) for o, _ in pairs]),
                "altered": check.readings(

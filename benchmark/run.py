@@ -50,6 +50,7 @@ from benchmark.reference.mesh import mesh_from_config  # noqa: E402
 from benchmark.reference.padding import plane_rows  # noqa: E402
 from benchmark.reference.problem import Reference, dirichlet  # noqa: E402
 from benchmark.spec import Spec  # noqa: E402
+from benchmark.trace import Capture, reduce_trace  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "navierstokes_tpu")
 
@@ -93,13 +94,48 @@ class Readings:
     schur_seconds: dict
     k1_forms: dict = dataclasses.field(default_factory=dict)
     trace: dict | None = None
+    k2_forms: dict = dataclasses.field(default_factory=dict)
+    counters: dict = dataclasses.field(default_factory=dict)
+
+
+def counter_delta(before: dict, after: dict) -> dict:
+    """What each counter of `after` counted since `before`."""
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+class Traced:
+    """Profiles one segment (`trace.Capture`) and keeps what the program's
+    counters counted over it, read outside the profiled segment: K1's and
+    K2's launches by form and the always-on counters (`.counted`, by the
+    names of `Readings`' fields)."""
+
+    READS = ("k1_forms", "k2_forms", "counters")
+
+    def __init__(self, system):
+        self.system = system
+        self.capture = None
+        self.counted = {}
+
+    def _read(self) -> dict:
+        return {name: getattr(self.system, name)() for name in self.READS}
+
+    def __enter__(self):
+        self._before = self._read()
+        self.capture = Capture().__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.capture.__exit__(*exc)
+        after = self._read()
+        self.counted = {name: counter_delta(self._before[name], after[name])
+                        for name in self.READS}
+        return False
 
 
 def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
              device: torch.device) -> tuple:
     """(result, checks): one run of the cell on `device`."""
     from benchmark.system import System
-    from benchmark.trace import Capture, reduce_trace
 
     cell = spec.cell(name)
     cfg = spec.config(cell["config"])
@@ -131,24 +167,13 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
     nvcc_s = system.nvcc_seconds()
     log(f"{name}: set-up {setup_s:.3f} s, of which nvcc {nvcc_s:.3f} s")
 
-    captures, traced_forms = [], {}
-
-    class Traced:
-        """Profiles one segment and counts its K1 launches by form."""
-
-        def __enter__(self):
-            self.forms = system.k1_forms()
-            self.capture = Capture().__enter__()
-
-        def __exit__(self, *exc):
-            self.capture.__exit__(*exc)
-            captures.append(self.capture)
-            for k, v in system.k1_forms().items():
-                traced_forms[k] = v - self.forms.get(k, 0)
-            return False
+    segments = []
 
     def traced(segment):
-        return Traced() if trace and segment == 0 else None
+        if not trace or segment:
+            return None
+        segments.append(Traced(system))
+        return segments[-1]
 
     window = traffic.replay(system, start, cell, seconds, seed,
                             traced=traced)
@@ -174,10 +199,11 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
 
-    reduced = None
+    reduced, traced_counts = None, {}
     if trace:
-        reduced = reduce_trace(captures[0].path)
-        log(f"{name}: trace {captures[0].path}")
+        reduced = reduce_trace(segments[0].capture.path)
+        traced_counts = segments[0].counted
+        log(f"{name}: trace {segments[0].capture.path}")
 
     t = time.perf_counter()
     reference = Reference(coords, tets, tags, cfg, device)
@@ -201,7 +227,7 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, trace: bool,
     r = Readings(cell=cell, config=cfg, device=dev, spans=spans,
                  window=window, setup_s=setup_s, peak_bytes=int(peak),
                  nbp=nbp, itemsize=itemsize, schur_seconds=schur_seconds,
-                 k1_forms=traced_forms, trace=reduced)
+                 trace=reduced, **traced_counts)
     metrics = {}
     for entry, reader in spec.metrics(name, trace):
         value = reader.read(r)

@@ -49,7 +49,7 @@ from benchmark.reference.padding import plane_rows
 from benchmark.reference.problem import dirichlet
 from benchmark.spec import Spec
 from benchmark.system import System
-from benchmark.trace import ANNOTATION, DEVICE_CATS, Capture, _union
+from benchmark.trace import ANNOTATION, DEVICE_CATS, _union
 
 PREFIX = "ns."
 OUTSIDE = "outside"         # idle with no program span open
@@ -101,6 +101,16 @@ class TracedSystem(System):
         profiling = cls._profiling()
         log = profiling.active() if profiling is not None else None
         return log.report() if log is not None else ""
+
+
+class Traced(run.Traced):
+    """`benchmark.run`'s profiled segment, the span log read at its end
+    (`.spans`)."""
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.spans = self.system.spans()
+        return False
 
 
 def _trace_events(path: str) -> tuple:
@@ -265,23 +275,14 @@ def run_spans(spec: Spec, name: str, seed: int, seconds: float,
         setup_s = run.process_age()
         marks = {"setup": system.spans()}
         syncs = {"setup": system.syncs()}
-        captures, forms = [], {}
+        segment = Traced(system)
 
-        class Traced:
-            def __enter__(self):
-                self.forms = system.k1_forms()
-                self.capture = Capture().__enter__()
-
-            def __exit__(self, *exc):
-                self.capture.__exit__(*exc)
-                captures.append(self.capture)
-                marks["traced"] = system.spans()
-                for k, v in system.k1_forms().items():
-                    forms[k] = v - self.forms.get(k, 0)
-                return False
+        def traced(k):
+            return segment if k == 0 else None
 
         window = traffic.replay(system, start, cell, seconds, seed,
-                                traced=lambda k: Traced() if k == 0 else None)
+                                traced=traced)
+        marks["traced"] = segment.spans
         marks["end"], syncs["end"] = system.spans(), system.syncs()
         tree = system.tree()
         implied = implied_syncs(marks["setup"], marks["end"], window.steps)
@@ -290,8 +291,8 @@ def run_spans(spec: Spec, name: str, seed: int, seconds: float,
         schur = system.schur_seconds()
     finally:
         TracedSystem.untracing()
-    reduced = reduce_trace(captures[0].path)
-    idle = idle_by_span(captures[0].path)
+    reduced = reduce_trace(segment.capture.path)
+    idle = idle_by_span(segment.capture.path)
     dev = {"platform": "gpu" if cuda else device.type,
            "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
            "count": 1, "memory_peak_bytes": int(peak), "nvcc_s": nvcc_s,
@@ -306,7 +307,7 @@ def run_spans(spec: Spec, name: str, seed: int, seconds: float,
         nbp=plane_rows(coords.shape[0], cfg["krylov"].get("coarse_agg")),
         itemsize=torch.empty((), dtype=getattr(torch, cfg["dtype"])
                              ).element_size(),
-        schur_seconds=schur, k1_forms=forms, trace=reduced)
+        schur_seconds=schur, trace=reduced, **segment.counted)
     metrics = {}
     for entry, reader in spec.metrics(name, True):
         value = reader.read(r)

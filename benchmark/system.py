@@ -3,8 +3,10 @@ it: the only module of the benchmark that imports it.
 
 `System` builds the solver the way `python -m navierstokes_tpu_torch.run`
 does for a configuration file, and reads the program's own counters: the
-Newton and GMRES counts of each step (`NewtonStats`), K1's launches by form
-(`ops/plane_dia.form_launches`), the host seconds of the Schur tier's
+Newton and GMRES counts of each step (`NewtonStats`), K1's and K2's
+launches by form (`ops/plane_dia.form_launches`, `ops/dia.form_launches`),
+the always-on counters (`utils/profiling.counters`: host syncs, CUDA graph
+captures, replays and run-ahead), the host seconds of the Schur tier's
 Newton preparation (`SchurPrep.seconds`) and the seconds the process spent
 in nvcc (`ops/cuda_lib.nvcc_seconds`).  It changes nothing of the solver.
 """
@@ -48,11 +50,14 @@ class System:
     def __init__(self, cfg: dict, coords, tets, tags, device):
         from navierstokes_tpu_torch.mesh.core import Mesh
         from navierstokes_tpu_torch.model import NavierStokesSolver
-        from navierstokes_tpu_torch.ops import cuda_lib, plane_dia
+        from navierstokes_tpu_torch.ops import cuda_lib, dia, plane_dia
+        from navierstokes_tpu_torch.utils import profiling
 
         self.device = torch.device(device)
         self._plane_dia = plane_dia
+        self._dia = dia
         self._cuda_lib = cuda_lib
+        self._counters = profiling.counters
         self.solver = NavierStokesSolver(
             Mesh(coords=coords, tets=tets, node_tags=tags),
             solver_config(cfg), device=self.device)
@@ -103,6 +108,17 @@ class System:
             n_out, n_in = (int(v) for v in key[0].split("x"))
             out[(n_out, n_in, int(key[1]), key[2], "halo" in key)] = n
         return out
+
+    def k2_forms(self) -> dict:
+        """K2 launches so far by the program's own form key, as it writes
+        it ("<data dtype>/<x dtype>", " halo" for the ghost-row form)."""
+        return dict(self._dia.form_launches)
+
+    def counters(self) -> dict:
+        """The program's always-on counters now, by name: `syncs`,
+        `graph_captures`, `graph_replays`, `graph_ahead`,
+        `graph_discarded`."""
+        return dict(self._counters())
 
     def release(self) -> None:
         """Drop every device tensor the solver holds."""

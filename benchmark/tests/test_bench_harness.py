@@ -66,8 +66,7 @@ def test_every_cell_config_and_metric_loads_by_name():
 def test_files_kept_for_later_cells_load():
     """Every traffic file names a configuration file, carries the limits
     of each compared number, and every metric file is a reader: a cell
-    kept out of BENCHMARK.json (m9_f32.early) comes back by its entries
-    alone."""
+    whose files are here comes into BENCHMARK.json by its entries alone."""
     for path in sorted((HERE / "workloads").glob("*.json")):
         cell = load_json(path)
         assert cell["name"] == path.stem
@@ -110,20 +109,57 @@ def test_benchmark_json_keeps_the_contract():
             assert UNIT.match(entry["unit"]), entry["unit"]
 
 
-def test_config_files_build_the_f32_flagship_of_run_main():
-    """The solver settings of each configuration are those `python -m
-    navierstokes_tpu_torch.run` takes for float32."""
-    from navierstokes_tpu_torch.config import NewtonConfig
+def run_main_contract(cfg: dict) -> None:
+    """Assert that a configuration file builds the solver settings that
+    `python -m navierstokes_tpu_torch.run` takes for its dtype on the
+    card: float32's flagship or float64's defaults, nothing else."""
+    from navierstokes_tpu_torch.config import NewtonConfig, SolverConfig
     from navierstokes_tpu_torch.run import default_f32_krylov
 
-    for path in sorted((HERE / "configs").glob("*.json")):
-        cfg = solver_config(load_json(path))
-        assert cfg.krylov == default_f32_krylov()
-        assert cfg.stokes_krylov == default_f32_krylov()
-        assert cfg.newton == NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
-                                          du_tol=float("inf"))
-        assert (cfg.dt, cfg.reynolds, cfg.delta, cfg.dtype) == (
-            1e-3, 300.0, 0.05, "float32")
+    assert cfg["dtype"] in ("float32", "float64"), cfg["dtype"]
+    ns = solver_config(cfg)
+    assert (ns.dt, ns.reynolds, ns.delta) == (1e-3, 300.0, 0.05)
+    if ns.dtype == "float32":
+        assert ns.krylov == default_f32_krylov()
+        assert ns.stokes_krylov == default_f32_krylov()
+        assert ns.newton == NewtonConfig(rtol=1e-4, atol=1e-5, stol=1e-6,
+                                         du_tol=float("inf"))
+    else:
+        assert ns.newton == NewtonConfig()
+        assert ns.krylov == SolverConfig()
+        assert ns.stokes_krylov == SolverConfig(rtol=1e-12, atol=1e-12,
+                                                maxiter=2000)
+
+
+@pytest.mark.parametrize("path", sorted((HERE / "configs").glob("*.json")),
+                         ids=lambda p: p.name)
+def test_config_files_build_what_run_main_builds_for_their_dtype(path):
+    run_main_contract(load_json(path))
+
+
+@pytest.mark.parametrize("keys, value", [
+    (("newton", "rtol"), 1e-5), (("newton", "atol"), 1e-6),
+    (("newton", "stol"), 1e-7), (("newton", "du_tol"), None),
+    (("dtype",), "float64"), (("dtype",), "float16"),
+], ids=lambda v: "/".join(v) if isinstance(v, tuple) else repr(v))
+def test_the_solver_contract_refuses_a_changed_file(keys, value):
+    """The f32 flagship's file with one Newton tolerance or its dtype
+    changed builds no solver that `run` builds."""
+    cfg = load_json(HERE / "configs" / "m6_f32.json")
+    entry = cfg
+    for key in keys[:-1]:
+        entry = entry[key]
+    entry[keys[-1]] = value
+    with pytest.raises(AssertionError):
+        run_main_contract(cfg)
+
+
+def test_a_float64_file_round_trips_through_solver_config():
+    """JSON null is Newton's du_tol None (atol, the reference's rule)."""
+    cfg = load_json(DATA / "configs" / "tiny_bj64.json")
+    assert cfg["newton"]["du_tol"] is None
+    assert solver_config(cfg).newton.du_tol is None
+    run_main_contract(cfg)
 
 
 def test_cpu_run_prints_the_contracts_line(cpu_run):
